@@ -1,0 +1,51 @@
+"""Carry the reference's state into the port.
+
+The protocol has no learned weights: what must match between the JAX
+package and the port is its configuration and the shared signatures.
+These functions read the reference's objects by attribute and its arrays
+through ``numpy.asarray`` (no import of the JAX package), so a test can
+run the port's relevance and HAC stages on the reference's own
+signatures, free of ``eigh``'s sign and degenerate-subspace choices.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.cluster_engine import ClusterConfig
+from repro_torch.core.similarity import SimilarityConfig
+from repro_torch.kernels.dispatch import resolve_device
+
+__all__ = ["similarity_config_from_reference",
+           "cluster_config_from_reference", "signatures_from_reference"]
+
+
+def similarity_config_from_reference(cfg) -> SimilarityConfig:
+    """A reference ``SimilarityConfig`` -> the port's.  The ``jnp`` and
+    ``pallas`` backends (and ``impl``) map to ``torch``: the port picks
+    the kernel by the tensors' device."""
+    return SimilarityConfig(
+        top_k=cfg.top_k, eig_floor=cfg.eig_floor,
+        backend="shard_map" if cfg.backend == "shard_map" else "torch",
+        block_users=cfg.block_users, landmarks=cfg.landmarks,
+        mesh_axis=cfg.mesh_axis)
+
+
+def cluster_config_from_reference(cfg) -> ClusterConfig:
+    """A reference ``ClusterConfig`` -> the port's: ``numpy`` stays,
+    ``jnp`` and ``pallas`` map to ``torch``."""
+    return ClusterConfig(
+        backend="numpy" if cfg.backend == "numpy" else "torch",
+        linkage=cfg.linkage)
+
+
+def signatures_from_reference(lam, v, grams=None,
+                              device: str | torch.device = "cuda"):
+    """Reference signatures ``lam (N, k)``, ``v (N, d, k)`` and optional
+    Grams ``(N, d, d)`` -> float32 tensors on ``device``."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return tensor(lam), tensor(v), None if grams is None else tensor(grams)

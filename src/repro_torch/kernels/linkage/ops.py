@@ -1,0 +1,102 @@
+"""Public wrappers for the linkage kernels (``csrc/linkage.cu``).
+
+``linkage_step`` keeps the reference's one-step contract
+(``src/repro/kernels/linkage/ops.py``).  ``nn_chain`` runs the whole
+NN-chain loop of ``core/cluster_engine.py`` in one persistent
+single-block launch: the reference ran its step kernel inside a jitted
+``while_loop``, and a host loop here would pay a launch and a round trip
+for each of about 4n steps.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build, dispatch
+from repro_torch.kernels.linkage.ref import (LINKAGES, linkage_step_ref,
+                                             max_iterations, nn_chain_ref)
+
+#: Shared memory a block may use on the H100 (opt-in maximum).
+_MAX_SMEM = 232448
+
+
+def _linkage_code(linkage: str) -> int:
+    if linkage not in LINKAGES:
+        raise ValueError(f"linkage must be one of {LINKAGES}, "
+                         f"got {linkage!r}")
+    return LINKAGES.index(linkage)
+
+
+def linkage_step(row_a: torch.Tensor, row_b: torch.Tensor, size_a, size_b,
+                 mask: torch.Tensor, linkage: str = "average"
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Fused Lance-Williams update + masked argmax of one linkage row.
+
+    ``row_a``/``row_b`` ``(n,)`` f32, ``mask (n,)`` bool or float (kept
+    where > 0.5), sizes as scalars.  Returns ``(new_row (n,), argmax
+    i32, max f32)``, the contract of ``linkage_step_ref``.
+    """
+    code = _linkage_code(linkage)
+    if row_a.ndim != 1 or row_a.shape != row_b.shape \
+            or row_a.shape != mask.shape:
+        raise ValueError(f"rows and mask must be (n,)-shaped alike, got "
+                         f"{tuple(row_a.shape)}, {tuple(row_b.shape)}, "
+                         f"{tuple(mask.shape)}")
+    if not dispatch.on_cuda(row_a, row_b, mask):
+        return linkage_step_ref(row_a, row_b, size_a, size_b, mask, linkage)
+    if row_a.dtype != torch.float32 or row_b.dtype != torch.float32:
+        raise TypeError("the linkage kernel takes float32 rows")
+    n = row_a.shape[0]
+    row_a = row_a.contiguous()
+    row_b = row_b.contiguous()
+    keep = mask.to(torch.float32).contiguous()
+    row = torch.empty_like(row_a)
+    idx = torch.empty((1,), dtype=torch.int32, device=row_a.device)
+    val = torch.empty((1,), dtype=torch.float32, device=row_a.device)
+    lib = build.library()
+    with torch.cuda.device(row_a.device):
+        rc = lib.repro_linkage_step(
+            row_a.data_ptr(), row_b.data_ptr(), float(size_a), float(size_b),
+            keep.data_ptr(), row.data_ptr(), idx.data_ptr(), val.data_ptr(),
+            n, code, dispatch.stream_of(row_a))
+    build.check(rc, "linkage_step")
+    dispatch.count_launch("linkage_step")
+    return row, idx[0], val[0]
+
+
+def nn_chain(s: torch.Tensor, linkage: str = "average"
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NN-chain HAC over a prepared linkage matrix ``s (n, n)`` f32 with
+    the diagonal at ``-inf``.  ``s`` is updated in place: pass a copy.
+
+    Returns ``(merge_rows (n-1, 2) i32, heights (n-1,) f32, steps)`` in
+    chain order; ``steps`` (0-dim int32, on ``s``'s device) counts the
+    merges done and falls short of ``n - 1`` only on NaN input.
+    """
+    code = _linkage_code(linkage)
+    if s.ndim != 2 or s.shape[0] != s.shape[1]:
+        raise ValueError(f"linkage matrix must be square, got "
+                         f"{tuple(s.shape)}")
+    if not dispatch.on_cuda(s):
+        return nn_chain_ref(s, linkage)
+    if s.dtype != torch.float32 or not s.is_contiguous():
+        raise TypeError("the nn_chain kernel updates a contiguous float32 "
+                        "matrix in place")
+    n = s.shape[0]
+    lib = build.library()
+    if lib.repro_nn_chain_smem(n) > _MAX_SMEM:
+        raise ValueError(f"n={n} leaves exceed the chain kernel's shared "
+                         f"memory ({_MAX_SMEM} bytes)")
+    merges = torch.zeros((max(n - 1, 0), 2), dtype=torch.int32,
+                         device=s.device)
+    heights = torch.zeros((max(n - 1, 0),), dtype=torch.float32,
+                          device=s.device)
+    counters = torch.zeros((2,), dtype=torch.int32, device=s.device)
+    if n < 2:
+        return merges, heights, counters[0]
+    with torch.cuda.device(s.device):
+        rc = lib.repro_nn_chain(s.data_ptr(), n, code, max_iterations(n),
+                                merges.data_ptr(), heights.data_ptr(),
+                                counters.data_ptr(), dispatch.stream_of(s))
+    build.check(rc, "nn_chain")
+    dispatch.count_launch("linkage")
+    return merges, heights, counters[0]

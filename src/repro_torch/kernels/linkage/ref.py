@@ -1,0 +1,120 @@
+"""Plain PyTorch versions of the linkage kernels.
+
+``linkage_step_ref`` mirrors ``src/repro/kernels/linkage/ref.py``: one
+NN-chain step on a similarity-linkage row, a Lance-Williams combination
+of the two merging clusters' rows plus a masked first-index argmax.
+Similarity semantics (higher = closer), so the linkages are mirrored:
+
+  average : (na * a + nb * b) / (na + nb)
+  single  : max(a, b)
+  complete: min(a, b)
+
+Passing the same row for ``a`` and ``b`` with unit sizes makes the
+update an identity, which is how the chain-extension step reuses it as
+a masked argmax.
+
+``nn_chain_ref`` is the whole NN-chain loop of
+``src/repro/core/cluster_engine.py::_nn_chain`` as a Python loop over
+``linkage_step_ref``: one host round trip per step, so it is the plain
+version the persistent kernel is held against, never the CUDA path.
+"""
+from __future__ import annotations
+
+import torch
+
+LINKAGES = ("average", "single", "complete")
+
+_NEG = float("-inf")
+
+
+def lance_williams(row_a: torch.Tensor, row_b: torch.Tensor,
+                   size_a: torch.Tensor, size_b: torch.Tensor,
+                   linkage: str) -> torch.Tensor:
+    """Combine two clusters' linkage rows (similarity semantics)."""
+    if linkage == "average":
+        return (size_a * row_a + size_b * row_b) / (size_a + size_b)
+    if linkage == "single":
+        return torch.maximum(row_a, row_b)
+    if linkage == "complete":
+        return torch.minimum(row_a, row_b)
+    raise ValueError(f"linkage must be one of {LINKAGES}, got {linkage!r}")
+
+
+def linkage_step_ref(row_a: torch.Tensor, row_b: torch.Tensor, size_a,
+                     size_b, mask: torch.Tensor, linkage: str = "average"
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(new_row, argmax, max)`` of the masked Lance-Williams update.
+
+    ``row_a``/``row_b`` ``(n,)`` f32, ``size_a``/``size_b`` scalars,
+    ``mask (n,)`` bool (or float, kept where > 0.5): dropped entries
+    become ``-inf`` and never win.  Ties resolve to the smallest index
+    and NaN ranks above every number, as ``torch.argmax`` does.
+    """
+    keep = mask if mask.dtype == torch.bool else mask > 0.5
+    sa = torch.as_tensor(size_a, dtype=row_a.dtype, device=row_a.device)
+    sb = torch.as_tensor(size_b, dtype=row_a.dtype, device=row_a.device)
+    new = lance_williams(row_a, row_b, sa, sb, linkage)
+    new = torch.where(keep, new, torch.full_like(new, _NEG))
+    idx = torch.argmax(new).to(torch.int32)
+    return new, idx, new[idx]
+
+
+def max_iterations(n: int) -> int:
+    """The NN-chain loop's iteration cap.  Chain similarities never
+    decrease, so a finite input needs at most about 4n steps; the cap
+    only stops a run on non-finite input."""
+    return 4 * n + 8
+
+
+def nn_chain_ref(s: torch.Tensor, linkage: str = "average"
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NN-chain HAC over a prepared linkage matrix, as a Python loop.
+
+    ``s (n, n)`` f32 with the diagonal at ``-inf``; it is updated in
+    place.  Returns ``(merge_rows (n-1, 2) i32, heights (n-1,) f32,
+    steps)`` in chain order, where ``steps`` (a 0-dim int32 tensor) is
+    the number of merges done: ``n - 1`` unless the input held NaN.
+    """
+    n = s.shape[0]
+    dev = s.device
+    size = torch.ones(n, dtype=torch.float32, device=dev)
+    alive = torch.ones(n, dtype=torch.bool, device=dev)
+    cols = torch.arange(n, device=dev)
+    one = torch.ones((), dtype=torch.float32, device=dev)
+    merges = torch.zeros((max(n - 1, 0), 2), dtype=torch.int32, device=dev)
+    heights = torch.zeros((max(n - 1, 0),), dtype=torch.float32, device=dev)
+    chain: list[int] = []
+    t = it = 0
+    while t < n - 1 and it < max_iterations(n):
+        if not chain:   # re-seed an empty chain with the smallest live row
+            chain.append(int(torch.argmax(alive.to(torch.int8))))
+        top = chain[-1]
+        prev = chain[-2] if len(chain) >= 2 else chain[0]
+        row_top = s[top]
+        prev_sim = float(row_top[prev]) if len(chain) >= 2 else _NEG
+        _, nn, best = linkage_step_ref(row_top, row_top, one, one,
+                                       alive & (cols != top), linkage)
+        # prev is top's predecessor, so prev_sim >= best means prev
+        # attains top's row max: a reciprocal pair.
+        if len(chain) >= 2 and prev_sim >= float(best):
+            i, j = min(top, prev), max(top, prev)
+            na, nb = size[i].clone(), size[j].clone()
+            alive[j] = False
+            new_row, _, _ = linkage_step_ref(s[i], s[j], na, nb,
+                                             alive & (cols != i), linkage)
+            s[i, :] = new_row
+            s[:, i] = new_row
+            s[j, :] = _NEG
+            s[:, j] = _NEG
+            size[i] = na + nb
+            size[j] = 0.0
+            merges[t, 0], merges[t, 1] = i, j
+            heights[t] = prev_sim
+            t += 1
+            del chain[-2:]
+        else:
+            if len(chain) > n:   # chain buffer full: only non-finite input
+                break
+            chain.append(int(nn))
+        it += 1
+    return merges, heights, torch.tensor(t, dtype=torch.int32)

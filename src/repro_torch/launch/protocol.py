@@ -1,0 +1,74 @@
+"""Protocol launcher for the port: the one-shot clustering protocol on a
+synthetic multi-task feature mixture, dense path.
+
+  # on the CUDA device (the default)
+  PYTHONPATH=src python -m repro_torch.launch.protocol --users 256
+
+  # plain PyTorch versions of the kernels, on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.protocol --device cpu
+
+Prints the same ``clustering accuracy`` and ledger lines as
+``repro.launch.protocol``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main(argv: list[str] | None = None) -> float:
+    """Run the launcher; returns the clustering accuracy."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--users", type=int, default=256)
+    ap.add_argument("--samples", type=int, default=64)
+    ap.add_argument("--dim", type=int, default=64)
+    ap.add_argument("--tasks", type=int, default=4)
+    ap.add_argument("--top-k", type=int, default=8)
+    ap.add_argument("--cluster-backend", default="torch",
+                    choices=["torch", "numpy"],
+                    help="GPS decision layer: the NN-chain on --device "
+                         "(keeps R there) or the host reference HAC")
+    ap.add_argument("--linkage", default="average",
+                    choices=["average", "single", "complete"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import clustering as clu
+    from repro_torch.core import oneshot
+    from repro_torch.core.cluster_engine import ClusterConfig
+    from repro_torch.core.similarity import SimilarityConfig
+    from repro_torch.data.synthetic import make_task_feature_mixture
+    from repro_torch.kernels.dispatch import device_kind, resolve_device
+
+    device = resolve_device(args.device)
+    feats, task_ids = make_task_feature_mixture(
+        args.users, args.samples, args.dim, args.tasks, seed=args.seed)
+    cfg = SimilarityConfig(top_k=args.top_k)
+    ccfg = ClusterConfig(backend=args.cluster_backend, linkage=args.linkage)
+    print(f"{args.users} users x {args.samples} samples x d={args.dim}, "
+          f"{args.tasks} tasks | device={device_kind(device)} "
+          f"cluster_backend={args.cluster_backend}")
+
+    t0 = time.perf_counter()
+    res = oneshot.one_shot_clustering(
+        torch.from_numpy(feats), n_clusters=args.tasks, cfg=cfg,
+        cluster_cfg=ccfg, device=device)
+    labels = np.asarray(torch.as_tensor(res.labels).cpu())  # host sync
+    dt = time.perf_counter() - t0
+    acc = clu.clustering_accuracy(labels, task_ids)
+    sizes = np.bincount(labels, minlength=args.tasks)
+    print(f"protocol + HAC: {dt:.2f}s | clustering accuracy {acc:.1%} | "
+          f"cluster sizes {sizes.tolist()}")
+    led = res.ledger.summary()
+    print(f"per-user upload {led['per_user_upload_bytes'] / 1024:.1f} KiB, "
+          f"download {led['per_user_download_bytes'] / 2**20:.2f} MiB, "
+          f"GPS total {led['gps_total_bytes'] / 2**20:.2f} MiB")
+    return acc
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,189 @@
+"""The port's protocol (Eqs. 1-5) against the JAX ``ProtocolEngine``.
+
+Same numpy mixtures on both sides; the JAX side runs its Pallas backend
+in interpret mode.  Each side runs its own ``eigh``, so eigenvectors are
+compared only through sign-free quantities: spectra, projectors
+``V V^T``, R and labels up to permutation.
+
+Tolerances:
+  * R end to end: atol 1e-4.  When ``top_k`` exceeds the task rank
+    ``d // 8``, some shared eigenvectors lie in the noise floor, where
+    ``G_i v`` cancels in fp32; independent ``eigh`` on the two sides then
+    moves R by up to 3.7e-5 (worst of 16 mixtures).  With
+    ``top_k <= d // 8`` the gap is below 5e-7.
+  * R from the reference's own signatures (``convert.py``): atol 1e-5,
+    the reference's own backend-parity bar.
+  * spectra: atol 1e-5 of the largest eigenvalue; projectors: atol 1e-4,
+    on a mixture whose top-k subspace is separated by a wide gap.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from _torch_support import CPU, host, same_partition, t
+from repro.core import clustering as ref_clu
+from repro.core import similarity as ref_sim
+from repro.core.engine import ProtocolEngine as RefProtocolEngine
+from repro.data import synthetic as ref_syn
+from repro_torch import convert
+from repro_torch.core import clustering as clu
+from repro_torch.core import similarity as sim
+from repro_torch.core.engine import ProtocolEngine
+
+
+def mixture(n_users, n, d, tasks, seed):
+    return ref_syn.make_task_feature_mixture(n_users, n, d, tasks, seed=seed)
+
+
+def port_engine(top_k, **kw):
+    return ProtocolEngine(sim.SimilarityConfig(top_k=top_k, **kw),
+                          device="cpu")
+
+
+@pytest.mark.parametrize("n_users,n,d,tasks,top_k,seed", [
+    (24, 48, 16, 3, 6, 7),     # top_k > d // 8: noise-floor eigenvectors
+    (16, 40, 32, 4, 4, 1),     # top_k == d // 8
+    (20, 30, 40, 2, 3, 11),    # top_k < d // 8
+])
+def test_similarity_matches_pallas_engine(n_users, n, d, tasks, top_k, seed):
+    feats, task_ids = mixture(n_users, n, d, tasks, seed)
+    ref_r = np.asarray(RefProtocolEngine(ref_sim.SimilarityConfig(
+        top_k=top_k, backend="pallas")).similarity(jnp.asarray(feats)))
+    r, big_r = port_engine(top_k).relevance_and_similarity(t(feats))
+    np.testing.assert_allclose(host(big_r), ref_r, atol=1e-4)
+    np.testing.assert_array_equal(host(big_r), host(big_r).T)
+    labels = clu.hac_clusters(host(big_r), tasks)
+    assert same_partition(labels, ref_clu.hac_clusters(ref_r, tasks))
+    assert clu.clustering_accuracy(labels, task_ids) == 1.0
+
+
+def test_ragged_users_match_reference():
+    rng = np.random.default_rng(4)
+    feats, _ = mixture(12, 40, 16, 3, 4)
+    ragged = [f[: rng.integers(5, 40)] for f in feats]
+    ref_r = np.asarray(RefProtocolEngine(ref_sim.SimilarityConfig(
+        top_k=2, backend="pallas")).similarity(ragged))
+    np.testing.assert_allclose(host(port_engine(2).similarity(ragged)),
+                               ref_r, atol=1e-4)
+
+
+class TestSignatures:
+    @pytest.fixture(scope="class")
+    def both(self):
+        feats, _ = mixture(12, 64, 64, 3, 2)
+        ref = RefProtocolEngine(ref_sim.SimilarityConfig(top_k=8))
+        lam, v, grams = ref.signatures(jnp.asarray(feats))
+        port = port_engine(8).signatures(t(feats))
+        return (np.asarray(lam), np.asarray(v), np.asarray(grams)), port
+
+    def test_grams(self, both):
+        (_, _, ref_g), (_, _, g) = both
+        np.testing.assert_allclose(host(g), ref_g, rtol=1e-5,
+                                   atol=1e-5 * np.abs(ref_g).max())
+
+    def test_spectra(self, both):
+        (ref_lam, _, _), (lam, _, _) = both
+        np.testing.assert_allclose(host(lam), ref_lam,
+                                   atol=1e-5 * ref_lam.max())
+        assert (host(lam)[:, :-1] >= host(lam)[:, 1:]).all()
+
+    def test_projectors(self, both):
+        (_, ref_v, _), (_, v, _) = both
+        proj = np.einsum("ndk,nek->nde", host(v), host(v))
+        ref_proj = np.einsum("ndk,nek->nde", ref_v, ref_v)
+        np.testing.assert_allclose(proj, ref_proj, atol=1e-4)
+
+    def test_relevance_from_reference_signatures(self, both):
+        (ref_lam, ref_v, ref_g), _ = both
+        ref_r = np.asarray(ref_sim.symmetrize(ref_sim.relevance_matrix(
+            jnp.asarray(ref_g), jnp.asarray(ref_lam), jnp.asarray(ref_v))))
+        lam, v, g = convert.signatures_from_reference(ref_lam, ref_v, ref_g,
+                                                      device="cpu")
+        r = sim.symmetrize(sim.relevance_matrix(g, lam, v))
+        np.testing.assert_allclose(host(r), ref_r, atol=1e-5)
+
+    def test_signatures_without_grams(self, both):
+        (ref_lam, ref_v, _), _ = both
+        lam, v, g = convert.signatures_from_reference(ref_lam, ref_v,
+                                                      device="cpu")
+        assert g is None and lam.dtype == v.dtype == torch.float32
+        assert lam.shape == ref_lam.shape and v.shape == ref_v.shape
+
+
+class TestStages:
+    def test_spectrum_order_clamp_and_top_k(self):
+        q = np.linalg.qr(np.random.default_rng(0).standard_normal((5, 5)))[0]
+        g = t(q @ np.diag([3.0, -1e-7, 1.0, 2.0, 0.5]) @ q.T)
+        g = (g + g.T) / 2
+        lam, v = sim.spectrum(g, 2)
+        np.testing.assert_allclose(host(lam), [3.0, 2.0], rtol=1e-5)
+        assert v.shape == (5, 2)
+        lam_all, _ = sim.spectrum(g, 0)
+        assert lam_all.shape == (5,) and float(lam_all.min()) >= 0.0
+
+    def test_relevance_matches_reference(self):
+        rng = np.random.default_rng(9)
+        lam = np.abs(rng.standard_normal(6)).astype(np.float32)
+        lam_hat = np.abs(rng.standard_normal(6)).astype(np.float32)
+        lam_hat[2] = 0.0
+        np.testing.assert_allclose(
+            float(sim.relevance(t(lam), t(lam_hat), 1e-6)),
+            float(ref_sim.relevance(jnp.asarray(lam), jnp.asarray(lam_hat),
+                                    1e-6)), rtol=1e-6)
+
+    def test_cross_project_and_gram(self):
+        rng = np.random.default_rng(2)
+        f = rng.standard_normal((10, 6)).astype(np.float32)
+        v = rng.standard_normal((6, 3)).astype(np.float32)
+        g = sim.gram(t(f), n_valid=8)
+        np.testing.assert_allclose(host(g), np.asarray(ref_sim.gram(
+            jnp.asarray(f), n_valid=8)), rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(
+            host(sim.cross_project(g, t(v))),
+            np.asarray(ref_sim.cross_project(jnp.asarray(host(g)),
+                                             jnp.asarray(v))), rtol=1e-5)
+
+    def test_similarity_matrix_wrapper(self):
+        feats, _ = mixture(8, 20, 8, 2, 0)
+        r = sim.similarity_matrix(feats, sim.SimilarityConfig(top_k=2),
+                                  device="cpu")
+        assert r.shape == (8, 8) and r.device == CPU
+
+
+class TestConfig:
+    @pytest.mark.parametrize("kw", [dict(top_k=-1), dict(eig_floor=0.0),
+                                    dict(block_users=-1), dict(landmarks=-2),
+                                    dict(landmarks=4, block_users=4),
+                                    dict(backend="pallas")])
+    def test_invalid_raises(self, kw):
+        with pytest.raises(ValueError):
+            sim.SimilarityConfig(**kw)
+
+    @pytest.mark.parametrize("kw", [dict(block_users=8), dict(landmarks=4),
+                                    dict(backend="shard_map")])
+    def test_unported_options_raise(self, kw):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_engine(4, **kw)
+
+    def test_run_raw_raises(self):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            port_engine(4).run_raw(np.zeros((2, 3, 4)), None)
+
+    @pytest.mark.parametrize("backend,expect", [("jnp", "torch"),
+                                                ("pallas", "torch"),
+                                                ("shard_map", "shard_map")])
+    def test_config_from_reference(self, backend, expect):
+        ref = ref_sim.SimilarityConfig(top_k=5, eig_floor=1e-5,
+                                       backend=backend, mesh_axis="users")
+        cfg = convert.similarity_config_from_reference(ref)
+        assert cfg == sim.SimilarityConfig(top_k=5, eig_floor=1e-5,
+                                           backend=expect, mesh_axis="users")
+
+    def test_prepare_rejects_bad_input(self):
+        eng = port_engine(2)
+        with pytest.raises(ValueError):
+            eng.prepare(np.zeros((3, 4)))
+        with pytest.raises(ValueError):
+            eng.prepare([np.zeros((3, 4))], n_valid=[3])
