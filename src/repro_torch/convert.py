@@ -1,11 +1,13 @@
 """Carry the reference's state into the port.
 
 The protocol has no learned weights: what must match between the JAX
-package and the port is its configuration and the shared signatures.
-These functions read the reference's objects by attribute and its arrays
-through ``numpy.asarray`` (no import of the JAX package), so a test can
-run the port's relevance and HAC stages on the reference's own
-signatures, free of ``eigh``'s sign and degenerate-subspace choices.
+package and the port is its configuration, the shared Phi parameters
+(the raw path's "weights", seeded through numpy), and the shared
+signatures.  These functions read the reference's objects by attribute
+and its arrays through ``numpy.asarray`` (no import of the JAX
+package), so a test can run the port's stages on the reference's own
+parameters and signatures, free of ``eigh``'s sign and
+degenerate-subspace choices.
 """
 from __future__ import annotations
 
@@ -13,11 +15,15 @@ import numpy as np
 import torch
 
 from repro_torch.core.cluster_engine import ClusterConfig
+from repro_torch.core.signature_engine import SignatureConfig
 from repro_torch.core.similarity import SimilarityConfig
+from repro_torch.data.features import FeatureConfig
 from repro_torch.kernels.dispatch import resolve_device
 
 __all__ = ["similarity_config_from_reference",
-           "cluster_config_from_reference", "signatures_from_reference"]
+           "cluster_config_from_reference", "signatures_from_reference",
+           "feature_config_from_reference",
+           "signature_config_from_reference", "phi_params_from_reference"]
 
 
 def similarity_config_from_reference(cfg) -> SimilarityConfig:
@@ -49,3 +55,32 @@ def signatures_from_reference(lam, v, grams=None,
         return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
 
     return tensor(lam), tensor(v), None if grams is None else tensor(grams)
+
+
+def feature_config_from_reference(cfg) -> FeatureConfig:
+    """A reference ``FeatureConfig`` -> the port's (same fields, so the
+    same seeded Phi and the same pinned probe digest)."""
+    return FeatureConfig(kind=cfg.kind, d=cfg.d, seed=cfg.seed,
+                         image_hw=cfg.image_hw,
+                         probe_digest=cfg.probe_digest)
+
+
+def signature_config_from_reference(cfg) -> SignatureConfig:
+    """A reference ``SignatureConfig`` -> the port's.  The ``jnp`` and
+    ``pallas`` backends map to ``torch``: the port picks the kernel by
+    the tensors' device."""
+    return SignatureConfig(
+        backend="shard_map" if cfg.backend == "shard_map" else "torch",
+        chunk_rows=cfg.chunk_rows, eig=cfg.eig,
+        subspace_iters=cfg.subspace_iters, oversample=cfg.oversample,
+        check=cfg.check, resid_tol=cfg.resid_tol,
+        compute_dtype=cfg.compute_dtype, mesh_axis=cfg.mesh_axis)
+
+
+def phi_params_from_reference(params: dict,
+                              device: str | torch.device = "cuda") -> dict:
+    """The reference's ``phi_params`` arrays -> float32 tensors on
+    ``device``, in the form ``SignatureEngine.params_for`` caches."""
+    dev = resolve_device(device)
+    return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
+            for k, v in params.items()}

@@ -1,24 +1,34 @@
 """One-shot protocol engine (paper Algorithm 2), PyTorch port.
 
-Mirrors the dense single-device path of ``src/repro/core/engine.py``
-(``_dense_protocol``): per-user Grams (Eq. 1) in one kernel launch, the
-top-k spectrum by batched ``eigh``, all ``N x N`` cross-projections
-(Eq. 2) in one kernel launch, relevance (Eqs. 3-4) and symmetrization
-(Eq. 5) in plain torch.  Everything stays on the engine's device.
+Mirrors the single-device paths of ``src/repro/core/engine.py``:
 
-Not ported yet, and rejected with ``NotImplementedError`` naming the
-ROADMAP item that ports them: blockwise streaming (``block_users``),
-the landmark sketch (``landmarks``), the sharded backend, and the
-raw-data entry point ``run_raw``.
+  * **dense** (``_dense_protocol``): per-user Grams (Eq. 1) in one
+    kernel launch, the top-k spectrum by batched ``eigh``, all ``N x N``
+    cross-projections (Eq. 2) in one kernel launch, relevance (Eqs. 3-4)
+    and symmetrization (Eq. 5) in plain torch;
+  * **blockwise** (``block_users > 0``): users in tiles; each tile's
+    Grams give its signatures and die, then each tile's relevance rows
+    come Gram-free from ``||G_i v|| = ||F_i^T (F_i v)|| / n_i`` against
+    the whole signature table, one ``gram_project`` launch per tile;
+  * **raw** (``run_raw``): raw shards + a ``FeatureConfig`` go through
+    the ``SignatureEngine`` (streamed featurize -> Gram, batched top-k
+    subspace iteration) before the relevance stage.
+
+Everything stays on the engine's device.  Not ported yet, and rejected
+with ``NotImplementedError`` naming the ROADMAP item that ports them:
+the landmark sketch (``landmarks``) and the sharded backend.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
+from repro_torch.core import signature_engine as sig
 from repro_torch.core import similarity as sim
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.kernels.gram_project import ops as gp_ops
 
 __all__ = ["ProtocolEngine", "ProtocolResult"]
 
@@ -46,6 +56,36 @@ def _dense_protocol(features: torch.Tensor, n_valid: torch.Tensor,
     return r, sim.symmetrize(r), lam, v
 
 
+def _tile_signatures(features: torch.Tensor, n_valid: torch.Tensor,
+                     top_k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """One tile's shared signatures; the ``(block, d, d)`` Grams die here."""
+    return sim.spectrum(sim.batched_gram(features, n_valid), top_k)
+
+
+def _tile_rows(features: torch.Tensor, n_valid: torch.Tensor,
+               lam_tile: torch.Tensor, v_flat: torch.Tensor,
+               eig_floor: float, top_k: int) -> torch.Tensor:
+    """Relevance rows ``(block, N_pad)`` of one user tile against the
+    whole signature table ``v_flat (d, N_pad * k)``: one ``gram_project``
+    launch for the tile, no ``(d, d)`` Gram."""
+    lam_hat = gp_ops.batched_gram_project(features, v_flat, n_valid)
+    lam_hat = lam_hat.reshape(features.shape[0], -1, top_k)  # (B, N_pad, k)
+    return sim.relevance(lam_tile[:, None, :], lam_hat, eig_floor)
+
+
+def _raw_finish(grams: torch.Tensor, top_k: int, eig_floor: float,
+                engine: "sig.SignatureEngine"):
+    """Gram stack -> ``(r, R, resid, lam, v)``: top-k spectrum (subspace
+    iteration by default), relevance and symmetrization.  The per-user
+    eigen-residual is only computed when the engine will check it
+    (``resid`` is ``None`` otherwise)."""
+    lam, v = engine.spectrum(grams, top_k)
+    resid = (sig.subspace_residual(grams, lam, v) if engine.cfg.check
+             else None)
+    r = sim.relevance_matrix(grams, lam, v, eig_floor)
+    return r, sim.symmetrize(r), resid, lam, v
+
+
 class ProtocolEngine:
     """One object that owns the whole one-shot protocol on one device.
 
@@ -60,10 +100,6 @@ class ProtocolEngine:
             raise NotImplementedError(
                 "the sharded protocol backend is not ported yet "
                 "(ROADMAP Queue 1 item 13)")
-        if cfg.block_users:
-            raise NotImplementedError(
-                "blockwise streaming (block_users > 0) is not ported yet "
-                "(ROADMAP Queue 1 item 5, kernel: Queue 2 item 4)")
         if cfg.landmarks:
             raise NotImplementedError(
                 "the landmark-sketched path (landmarks > 0) is not ported "
@@ -83,20 +119,58 @@ class ProtocolEngine:
 
     def signatures(self, features, n_valid=None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Per-user ``(lam (N, k), V (N, d, k), G (N, d, d))``."""
+        """Per-user ``(lam (N, k), V (N, d, k), G (N, d, d))``: dense
+        only, since it materialises every Gram."""
+        if self.cfg.block_users:
+            raise ValueError(
+                "signatures() materializes the full (N, d, d) Gram stack "
+                "and is only available on the dense config (got "
+                f"block_users={self.cfg.block_users})")
         feats, nv = self.prepare(features, n_valid)
         grams = sim.batched_gram(feats, nv)
         lam, v = sim.spectrum(grams, self._top_k(feats.shape[-1]))
         return lam, v, grams
 
-    def _dense(self, feats: torch.Tensor, nv: torch.Tensor):
+    def _dispatch(self, feats: torch.Tensor, nv: torch.Tensor):
+        """Dense or blockwise on prepared inputs -> ``(r, R, lam, v)``."""
+        if self.cfg.block_users:
+            return self._run_blockwise(feats, nv)
         return _dense_protocol(feats, nv, self._top_k(feats.shape[-1]),
                                self.cfg.eig_floor)
+
+    def _run_blockwise(self, feats: torch.Tensor, nv: torch.Tensor):
+        n_users, n, d = feats.shape
+        block = min(self.cfg.block_users, n_users)
+        top_k = self._top_k(d)
+        pad = (-n_users) % block
+        if pad:
+            # Phantom users (zero features, n_valid 1) square off the last
+            # tile, as in the reference; their rows and columns are sliced
+            # away below.
+            feats = torch.cat([feats, feats.new_zeros((pad, n, d))])
+            nv = torch.cat([nv, nv.new_ones((pad,))])
+        n_total = n_users + pad
+
+        # Pass 1: the signature table, one tile at a time (O(block d^2)
+        # live Grams; the table is O(N d k), what each user downloads).
+        tiles = [_tile_signatures(feats[s:s + block], nv[s:s + block], top_k)
+                 for s in range(0, n_total, block)]
+        lam_all = torch.cat([t[0] for t in tiles])            # (N_tot, k)
+        v_all = torch.cat([t[1] for t in tiles])              # (N_tot, d, k)
+        v_flat = v_all.permute(1, 0, 2).reshape(d, -1).contiguous()
+
+        # Pass 2: relevance rows, tile by tile, Gram-free.
+        rows = [_tile_rows(feats[s:s + block], nv[s:s + block],
+                           lam_all[s:s + block], v_flat, self.cfg.eig_floor,
+                           top_k)
+                for s in range(0, n_total, block)]
+        r = torch.cat(rows)[:n_users, :n_users]
+        return r, sim.symmetrize(r), lam_all[:n_users], v_all[:n_users]
 
     def relevance_and_similarity(self, features, n_valid=None
                                  ) -> tuple[torch.Tensor, torch.Tensor]:
         """Run the full protocol -> ``(r (N, N) directed, R symmetrized)``."""
-        return self._dense(*self.prepare(features, n_valid))[:2]
+        return self._dispatch(*self.prepare(features, n_valid))[:2]
 
     def similarity(self, features, n_valid=None) -> torch.Tensor:
         """``R (N, N)``: the matrix the GPS feeds to HAC."""
@@ -104,13 +178,61 @@ class ProtocolEngine:
 
     def run(self, features, n_valid=None) -> ProtocolResult:
         feats, nv = self.prepare(features, n_valid)
-        r, big_r, lam, v = self._dense(feats, nv)
+        r, big_r, lam, v = self._dispatch(feats, nv)
         n_users, _, d = feats.shape
         return ProtocolResult(relevance=r, similarity=big_r,
                               n_users=n_users, d=d, top_k=self._top_k(d),
                               lam=lam, v=v)
 
-    def run_raw(self, *args, **kwargs) -> ProtocolResult:
-        raise NotImplementedError(
-            "the raw-data entry point is not ported yet (ROADMAP Queue 1 "
-            "item 7, kernel: Queue 2 item 5)")
+    # -- raw-data entry point ----------------------------------------------
+
+    def _signature_engine(self, feature_cfg, signature_cfg, probe
+                          ) -> "sig.SignatureEngine":
+        """Build the ingest engine on this engine's device."""
+        if signature_cfg is None:
+            signature_cfg = sig.SignatureConfig(mesh_axis=self.cfg.mesh_axis)
+        if signature_cfg.backend == "shard_map":
+            raise NotImplementedError(sig.SHARD_MAP_TODO)
+        return sig.SignatureEngine(feature_cfg, signature_cfg, probe=probe,
+                                   device=self.device)
+
+    def run_raw(self, raw, feature_cfg, n_valid=None, probe=None,
+                signature_cfg: "sig.SignatureConfig | None" = None
+                ) -> ProtocolResult:
+        """Full protocol from raw user shards: ``raw (N, n, m)`` (numpy
+        on the host, a tensor, or a ragged list of ``(n_i, m)``) + a
+        ``FeatureConfig`` -> ``(r, R)``.
+
+        The ``SignatureEngine`` ingests on the device (streamed featurize
+        -> Gram, batched top-k subspace iteration); the relevance stage
+        then runs on the resulting ``(N, d', d')`` Gram stack.  Pass the
+        ``pca`` probe set via ``probe=``.  ``block_users`` belongs to the
+        pre-featurised path (it never holds the Gram stack, which raw
+        relevance needs) and is rejected here.
+        """
+        if self.cfg.block_users:
+            raise ValueError(
+                "run_raw computes relevance on the (N, d', d') Gram stack "
+                "and does not support block_users streaming; stream the "
+                "ROW axis instead via SignatureConfig.chunk_rows")
+        engine = self._signature_engine(feature_cfg, signature_cfg, probe)
+        full = (n_valid is None
+                and isinstance(raw, (torch.Tensor, np.ndarray)))
+        raw, nv = engine.prepare(raw, n_valid)
+        n_users, _, m = raw.shape
+        d_out = engine.out_dim(m)
+        top_k = self._top_k(d_out)
+        grams = engine.accumulate_grams(raw, nv, assume_full=full)
+        r, big_r, resid, lam, v = _raw_finish(grams, top_k,
+                                              self.cfg.eig_floor, engine)
+        if engine.cfg.check:
+            engine.verify_convergence(resid)
+        return ProtocolResult(relevance=r, similarity=big_r,
+                              n_users=n_users, d=d_out, top_k=top_k,
+                              lam=lam, v=v)
+
+    def similarity_from_raw(self, raw, feature_cfg, n_valid=None,
+                            probe=None, signature_cfg=None) -> torch.Tensor:
+        """``R (N, N)`` straight from raw shards; see ``run_raw``."""
+        return self.run_raw(raw, feature_cfg, n_valid=n_valid, probe=probe,
+                            signature_cfg=signature_cfg).similarity

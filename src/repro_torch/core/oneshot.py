@@ -1,8 +1,8 @@
 """One-shot clustering protocol (paper Algorithm 2), PyTorch port.
 
-Mirrors the pre-featurised path of ``src/repro/core/oneshot.py``: the
-``ProtocolEngine`` (Eqs. 1-5), the ``ClusterEngine`` (HAC + cut) and the
-communication ledger.  With the torch cluster backend, ``R`` and the
+Mirrors ``src/repro/core/oneshot.py`` on one device: the
+``ProtocolEngine`` (Eqs. 1-5; dense, blockwise, or from raw data), the
+``ClusterEngine`` (HAC + cut) and the communication ledger.  With the torch cluster backend, ``R`` and the
 labels stay on the device from protocol to labels.
 """
 from __future__ import annotations
@@ -156,6 +156,9 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
                         model_params: int = 0,
                         n_valid=None,
                         cluster_cfg: ClusterConfig | None = None,
+                        feature_cfg=None,
+                        probe: np.ndarray | None = None,
+                        signature_cfg=None,
                         device: str | torch.device = "cuda"
                         ) -> OneShotResult:
     """Run paper Algorithm 2 end to end on per-user feature matrices.
@@ -167,9 +170,25 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
     chooses the decision layer and its linkage: by default the NN-chain
     on ``device`` (``backend="torch"``), which keeps ``R`` and the labels
     there; the host reference HAC only with ``backend="numpy"``.
+
+    Raw-data entry point: passing ``feature_cfg`` (a
+    ``repro_torch.data.features.FeatureConfig``) declares ``features`` to
+    be raw user shards ``(n_i, m)`` instead; the ``SignatureEngine``
+    then runs featurize -> Gram -> top-k signatures on the device
+    (configured by ``signature_cfg``), with no host Phi stage and no
+    ``(N, n, d)`` feature stack.  ``probe`` carries the public ``pca``
+    probe set.
     """
+    if feature_cfg is None and (probe is not None
+                                or signature_cfg is not None):
+        raise ValueError("probe/signature_cfg configure the raw-data "
+                         "entry point; pass feature_cfg to enable it")
     engine = ProtocolEngine(cfg, device=device)
-    res = engine.run(features, n_valid)
+    if feature_cfg is not None:
+        res = engine.run_raw(features, feature_cfg, n_valid=n_valid,
+                             probe=probe, signature_cfg=signature_cfg)
+    else:
+        res = engine.run(features, n_valid)
     cengine = ClusterEngine(cluster_cfg, device=engine.device)
     if cengine.on_device:
         big_r, relevance = res.similarity, res.relevance
@@ -178,8 +197,10 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
         relevance = res.relevance.cpu().numpy()
     dend = cengine.hac(big_r)
     labels = cengine.cut(dend, n_clusters)
-    ledger = CommLedger(n_users=res.n_users, d=res.d, top_k=res.top_k,
-                        model_params=model_params)
+    ledger = CommLedger(
+        n_users=res.n_users, d=res.d, top_k=res.top_k,
+        model_params=model_params,
+        mode="streaming" if engine.cfg.block_users else "broadcast")
     return OneShotResult(labels=labels, similarity=big_r,
                          relevance=relevance, dendrogram=dend,
                          ledger=ledger, lam=res.lam, v=res.v)

@@ -55,7 +55,8 @@ class SimilarityConfig:
       eig_floor: eigenvalues below this are clamped before the min/max
         ratio (paper §III).
       backend: ``"torch"`` or ``"shard_map"`` (not ported yet).
-      block_users: ``> 0`` selects blockwise streaming (not ported yet).
+      block_users: ``> 0`` selects blockwise streaming: users in tiles
+        of this size, Grams only per tile, Gram-free cross-projection.
       landmarks: ``> 0`` selects the Nystrom-sketched path (not ported yet).
       mesh_axis: mesh axis users are sharded over (shard_map backend).
 

@@ -39,6 +39,10 @@ _SIGNATURES = {
     "repro_linkage_step": (_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _P),
     "repro_nn_chain": (_P, _I, _I, _I, _P, _P, _P, _P),
     "repro_nn_chain_smem": (_I,),
+    "repro_featurize_gram": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_featurize_gram_rows": (_I,),
+    "repro_gram_project": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_gram_project_slab": (_I,),
     "repro_error_string": (_I,),
 }
 _RESTYPES = {"repro_nn_chain_smem": ctypes.c_int64,

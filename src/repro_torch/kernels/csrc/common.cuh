@@ -12,6 +12,6 @@
 #define REPRO_EXPORT extern "C" __attribute__((visibility("default")))
 
 // Grid sizes are passed as 32-bit ints; callers check the bound.
-static inline int repro_ceil_div(int64_t a, int64_t b) {
+static inline __host__ __device__ int repro_ceil_div(int64_t a, int64_t b) {
   return (int)((a + b - 1) / b);
 }

@@ -1,11 +1,20 @@
 """Protocol launcher for the port: the one-shot clustering protocol on a
-synthetic multi-task feature mixture, dense path.
+synthetic multi-task feature mixture.
 
-  # on the CUDA device (the default)
+  # dense, on the CUDA device (the default)
   PYTHONPATH=src python -m repro_torch.launch.protocol --users 256
 
   # plain PyTorch versions of the kernels, on the CPU
   PYTHONPATH=src python -m repro_torch.launch.protocol --device cpu
+
+  # blockwise streaming: O(block * d^2) live Grams
+  PYTHONPATH=src python -m repro_torch.launch.protocol --users 1024 \\
+      --block-users 128
+
+  # raw-data entry point: Phi + Gram streamed in row chunks, batched
+  # top-k subspace iteration
+  PYTHONPATH=src python -m repro_torch.launch.protocol --users 512 \\
+      --raw-dim 256 --feature random_projection --dim 64 --chunk-rows 32
 
 Prints the same ``clustering accuracy`` and ledger lines as
 ``repro.launch.protocol``.
@@ -30,6 +39,22 @@ def main(argv: list[str] | None = None) -> float:
                          "(keeps R there) or the host reference HAC")
     ap.add_argument("--linkage", default="average",
                     choices=["average", "single", "complete"])
+    ap.add_argument("--block-users", type=int, default=0,
+                    help="> 0 enables blockwise streaming")
+    ap.add_argument("--raw-dim", type=int, default=0,
+                    help="> 0 enables the RAW-DATA entry point: users hand "
+                         "raw m-dim shards and the SignatureEngine "
+                         "featurizes on the device (m = this value)")
+    ap.add_argument("--feature", default="random_projection",
+                    choices=["identity", "random_projection"],
+                    help="shared Phi for the raw entry point")
+    ap.add_argument("--chunk-rows", type=int, default=0,
+                    help="> 0 streams raw ingest in row chunks of this "
+                         "size (peak memory independent of --samples)")
+    ap.add_argument("--eig", default="subspace",
+                    choices=["subspace", "eigh"],
+                    help="raw-path eigensolver: batched top-k subspace "
+                         "iteration or exact eigh")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
@@ -40,23 +65,39 @@ def main(argv: list[str] | None = None) -> float:
     from repro_torch.core import clustering as clu
     from repro_torch.core import oneshot
     from repro_torch.core.cluster_engine import ClusterConfig
+    from repro_torch.core.signature_engine import SignatureConfig
     from repro_torch.core.similarity import SimilarityConfig
+    from repro_torch.data.features import FeatureConfig, phi_out_dim
     from repro_torch.data.synthetic import make_task_feature_mixture
     from repro_torch.kernels.dispatch import device_kind, resolve_device
 
     device = resolve_device(args.device)
+    raw_mode = args.raw_dim > 0
+    mix_dim = args.raw_dim if raw_mode else args.dim
     feats, task_ids = make_task_feature_mixture(
-        args.users, args.samples, args.dim, args.tasks, seed=args.seed)
-    cfg = SimilarityConfig(top_k=args.top_k)
+        args.users, args.samples, mix_dim, args.tasks, seed=args.seed)
+    cfg = SimilarityConfig(top_k=args.top_k, block_users=args.block_users)
     ccfg = ClusterConfig(backend=args.cluster_backend, linkage=args.linkage)
-    print(f"{args.users} users x {args.samples} samples x d={args.dim}, "
+    feature_cfg = signature_cfg = None
+    shape = f"d={args.dim}"
+    if raw_mode:
+        feature_cfg = FeatureConfig(kind=args.feature, d=args.dim,
+                                    seed=args.seed)
+        signature_cfg = SignatureConfig(chunk_rows=args.chunk_rows,
+                                        eig=args.eig)
+        shape = (f"m={mix_dim} -> d={phi_out_dim(feature_cfg, mix_dim)} "
+                 f"({args.feature})")
+    print(f"{args.users} users x {args.samples} samples x {shape}, "
           f"{args.tasks} tasks | device={device_kind(device)} "
-          f"cluster_backend={args.cluster_backend}")
+          f"cluster_backend={args.cluster_backend} "
+          f"block_users={args.block_users} raw={raw_mode} "
+          f"chunk_rows={args.chunk_rows}")
 
     t0 = time.perf_counter()
     res = oneshot.one_shot_clustering(
-        torch.from_numpy(feats), n_clusters=args.tasks, cfg=cfg,
-        cluster_cfg=ccfg, device=device)
+        feats if raw_mode else torch.from_numpy(feats),
+        n_clusters=args.tasks, cfg=cfg, cluster_cfg=ccfg,
+        feature_cfg=feature_cfg, signature_cfg=signature_cfg, device=device)
     labels = np.asarray(torch.as_tensor(res.labels).cpu())  # host sync
     dt = time.perf_counter() - t0
     acc = clu.clustering_accuracy(labels, task_ids)

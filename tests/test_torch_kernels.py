@@ -6,8 +6,12 @@ kernels in interpret mode, on the same numpy inputs.  Tolerance: fp32
 sums taken in another order agree to rtol 1e-5; entries near zero from
 cancellation get an absolute floor of 1e-5 of the largest entry.  The
 linkage step is elementwise IEEE arithmetic plus an argmax, so it must
-agree exactly.  The CUDA kernels are held against the plain versions
-on the card in ``test_torch_kernels_gpu.py``.
+agree exactly.  featurize_gram in bf16 rounds F to bf16 on both sides;
+a sum taken in another order can flip one rounding (one bf16 ulp is
+3.9e-3 of the entry), so it is held to 2e-3 of the largest entry, and
+to the reference's own 2e-2 against the fp32 function.  The CUDA
+kernels are held against the plain versions on the card in
+``test_torch_kernels_gpu.py``.
 """
 import numpy as np
 import pytest
@@ -18,7 +22,9 @@ import jax.numpy as jnp
 from _torch_support import CPU, host, t
 from repro.core import similarity as ref_sim
 from repro.kernels.eigproject import ops as ref_proj
+from repro.kernels.featurize_gram import ops as ref_fg
 from repro.kernels.gram import ops as ref_gram
+from repro.kernels.gram_project import ops as ref_gp
 from repro.kernels.linkage import linkage_step as ref_linkage_step
 from repro.kernels.linkage import linkage_step_ref as ref_linkage_step_ref
 from repro_torch.core import similarity as sim
@@ -26,8 +32,13 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.eigproject import (project_norms, project_norms_all,
                                             project_norms_all_ref,
                                             project_norms_ref)
+from repro_torch.kernels.featurize_gram import (batched_featurize_gram,
+                                                featurize_gram,
+                                                featurize_gram_ref)
 from repro_torch.kernels.gram import (batched_gram_matrix, gram_matrix,
                                       gram_ref)
+from repro_torch.kernels.gram_project import (batched_gram_project,
+                                              gram_project, gram_project_ref)
 from repro_torch.kernels.linkage import (LINKAGES, linkage_step,
                                          linkage_step_ref, nn_chain,
                                          nn_chain_ref)
@@ -127,6 +138,115 @@ class TestEigprojectPlain:
             project_norms_all(torch.zeros(2, 4, 4), torch.zeros(2, 5, 1))
 
 
+class TestFeaturizeGramPlain:
+    @pytest.mark.parametrize("n,m,d", [(128, 128, 128), (100, 96, 40),
+                                       (130, 300, 72), (64, 40, 12),
+                                       (1, 7, 3)])
+    def test_fp32_matches_pallas(self, n, m, d):
+        rng = np.random.default_rng(n * 3 + m + d)
+        x = rng.standard_normal((n, m)).astype(np.float32)
+        w = (rng.standard_normal((m, d)) / np.sqrt(d)).astype(np.float32)
+        close(featurize_gram_ref(t(x), t(w)),
+              ref_fg.featurize_gram(jnp.asarray(x), jnp.asarray(w),
+                                    interpret=True))
+
+    @pytest.mark.parametrize("n,m,d", [(256, 200, 64), (37, 50, 20)])
+    def test_bf16_matches_pallas(self, n, m, d):
+        rng = np.random.default_rng(9 + n)
+        x = rng.standard_normal((n, m)).astype(np.float32)
+        w = (rng.standard_normal((m, d)) / 8.0).astype(np.float32)
+        out = featurize_gram_ref(t(x), t(w), "bf16")
+        assert out.dtype == torch.float32
+        ref = np.asarray(ref_fg.featurize_gram(
+            jnp.asarray(x), jnp.asarray(w), compute_dtype="bf16",
+            interpret=True))
+        scale = np.abs(ref).max()
+        assert np.abs(out.numpy() - ref).max() <= 2e-3 * scale
+        fp32 = featurize_gram_ref(t(x), t(w)).numpy()
+        assert np.abs(out.numpy() - fp32).max() < 2e-2 * scale
+
+    def test_identity_and_zero_rows(self):
+        rng = np.random.default_rng(5)
+        x = rng.standard_normal((40, 48)).astype(np.float32)
+        padded = np.zeros((64, 48), np.float32)
+        padded[:40] = x
+        w = t(rng.standard_normal((48, 16)))
+        assert torch.equal(featurize_gram_ref(t(x)), gram_ref(t(x)))
+        close(featurize_gram_ref(t(padded), w), featurize_gram_ref(t(x), w))
+
+    def test_wrapper_on_cpu_is_plain_and_accumulates(self):
+        rng = np.random.default_rng(6)
+        x = t(rng.standard_normal((3, 10, 12)))
+        w = t(rng.standard_normal((12, 5)))
+        for cd in ("fp32", "bf16"):
+            assert torch.equal(batched_featurize_gram(x, w, cd),
+                               featurize_gram_ref(x, w, cd))
+        assert torch.equal(featurize_gram(x[1], w),
+                           featurize_gram_ref(x[1:2], w)[0])
+        acc = t(rng.standard_normal((3, 5, 5)))
+        expect = acc + featurize_gram_ref(x, w)
+        out = batched_featurize_gram(x, w, out=acc)
+        assert out is acc and torch.equal(out, expect)
+
+    def test_rejects_bad_arguments(self):
+        x, w = torch.zeros(2, 8, 8), torch.zeros(8, 4)
+        with pytest.raises(ValueError, match="compute_dtype"):
+            batched_featurize_gram(x, w, compute_dtype="fp16")
+        with pytest.raises(ValueError):
+            batched_featurize_gram(x, torch.zeros(7, 4))
+        with pytest.raises(ValueError, match="out"):
+            batched_featurize_gram(x, w, out=torch.zeros(2, 4, 5))
+
+
+class TestGramProjectPlain:
+    @pytest.mark.parametrize("n,d,k,n_valid", [(128, 128, 128, None),
+                                               (100, 40, 70, 63),
+                                               (17, 33, 5, 17), (1, 8, 3, 0),
+                                               (300, 70, 9, 257)])
+    def test_matches_pallas(self, n, d, k, n_valid):
+        rng = np.random.default_rng(n + d + k)
+        x = rng.standard_normal((n, d)).astype(np.float32)
+        if n_valid is not None:
+            x[n_valid:] = 0.0
+        v = rng.standard_normal((d, k)).astype(np.float32)
+        close(gram_project_ref(t(x), t(v), n_valid),
+              ref_gp.gram_project(jnp.asarray(x), jnp.asarray(v),
+                                  n_valid=n_valid, interpret=True))
+
+    def test_batched_ragged_and_chunked(self, monkeypatch):
+        from repro_torch.kernels.gram_project import ref as gp_ref
+
+        rng = np.random.default_rng(8)
+        x = rng.standard_normal((5, 30, 12)).astype(np.float32)
+        nv = np.array([30, 1, 17, 0, 29], np.float32)
+        for i, c in enumerate(nv):
+            x[i, int(c):] = 0.0
+        v = rng.standard_normal((12, 7)).astype(np.float32)
+        out = batched_gram_project(t(x), t(v), t(nv))
+        for i in range(5):
+            close(out[i], ref_gp.gram_project(
+                jnp.asarray(x[i]), jnp.asarray(v), n_valid=float(nv[i]),
+                interpret=True))
+            assert torch.equal(gram_project(t(x[i]), t(v), float(nv[i])),
+                               gram_project_ref(t(x[i]), t(v), float(nv[i])))
+        monkeypatch.setattr(gp_ref, "CHUNK_BYTES", 1)
+        assert torch.equal(gram_project_ref(t(x), t(v), t(nv)), out)
+
+    def test_equals_gram_then_eigproject(self):
+        rng = np.random.default_rng(3)
+        x = t(rng.standard_normal((4, 20, 9)))
+        v = t(rng.standard_normal((9, 6)))
+        via_gram = project_norms_all_ref(gram_ref(x) / 20.0,
+                                         v.reshape(1, 9, 6))[:, 0]
+        close(batched_gram_project(x, v), via_gram.numpy())
+
+    def test_rejects_bad_shapes(self):
+        with pytest.raises(ValueError):
+            batched_gram_project(torch.zeros(2, 3, 4), torch.zeros(5, 2))
+        with pytest.raises(ValueError):
+            gram_project(torch.zeros(2, 3, 4), torch.zeros(4, 2))
+
+
 def _rows(n, seed):
     """Rows with exact ties (values on a 1/4 grid), a random mask."""
     rng = np.random.default_rng(seed)
@@ -222,6 +342,8 @@ class TestDispatch:
         dispatch.reset_launches()
         x = torch.ones((2, 3, 4))
         project_norms_all(batched_gram_matrix(x), torch.ones((2, 4, 1)))
+        batched_featurize_gram(x, torch.ones((4, 2)))
+        batched_gram_project(x, torch.ones((4, 2)))
         assert all(v == 0 for v in dispatch.LAUNCHES.values())
 
     def test_mixed_devices_raise(self):

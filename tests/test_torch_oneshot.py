@@ -97,3 +97,45 @@ def test_launcher_prints_reference_lines(capsys, cluster_backend):
     assert acc == 1.0
     assert "clustering accuracy 100.0%" in out
     assert "per-user upload" in out and "GPS total" in out
+
+
+@pytest.mark.parametrize("flags", [
+    ["--block-users", "8"],
+    ["--raw-dim", "48", "--dim", "16", "--chunk-rows", "12"],
+    ["--raw-dim", "24", "--feature", "identity", "--eig", "eigh"],
+])
+def test_launcher_raw_and_blockwise_modes(capsys, flags):
+    acc = protocol.main(["--device", "cpu", "--users", "24", "--samples",
+                         "32", "--dim", "16", "--tasks", "3", "--top-k", "2",
+                         *flags])
+    out = capsys.readouterr().out
+    assert acc == 1.0
+    assert "clustering accuracy 100.0%" in out
+    if "--raw-dim" in flags:
+        assert "raw=True" in out and "m=" in out
+    else:
+        assert "block_users=8" in out
+
+
+def test_raw_entry_point_matches_reference(mixture):
+    """``feature_cfg`` turns the features into raw shards: labels and the
+    ledger equal the reference's raw entry point."""
+    from repro.core.signature_engine import SignatureConfig as RefSigConfig
+    from repro.data.features import FeatureConfig as RefFeatureConfig
+    from repro_torch.core.signature_engine import SignatureConfig
+    from repro_torch.data.features import FeatureConfig
+
+    feats, task_ids = mixture
+    res = oneshot.one_shot_clustering(
+        feats, 4, cfg=SimilarityConfig(top_k=3),
+        feature_cfg=FeatureConfig(kind="random_projection", d=12),
+        signature_cfg=SignatureConfig(chunk_rows=16), device="cpu")
+    ref = ref_oneshot.one_shot_clustering(
+        feats, 4, cfg=ref_sim.SimilarityConfig(top_k=3),
+        feature_cfg=RefFeatureConfig(kind="random_projection", d=12),
+        signature_cfg=RefSigConfig(chunk_rows=16))
+    assert clu.clustering_accuracy(host(res.labels), task_ids) == 1.0
+    assert same_partition(res.labels, ref.labels)
+    np.testing.assert_allclose(host(res.similarity),
+                               np.asarray(ref.similarity), atol=1e-5)
+    assert res.ledger.summary() == ref.ledger.summary()

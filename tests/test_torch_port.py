@@ -108,7 +108,10 @@ def test_port_imports_neither_jax_nor_reference():
 
     names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
                                                    "repro_torch.")]
-    assert "repro_torch.core.oneshot" in names
+    for name in ("core.oneshot", "core.signature_engine", "data.features",
+                 "data.partition", "kernels.featurize_gram.ops",
+                 "kernels.gram_project.ops"):
+        assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"

@@ -161,15 +161,27 @@ class TestConfig:
         with pytest.raises(ValueError):
             sim.SimilarityConfig(**kw)
 
-    @pytest.mark.parametrize("kw", [dict(block_users=8), dict(landmarks=4),
+    @pytest.mark.parametrize("kw", [dict(landmarks=4), dict(landmarks=2,
+                                                            top_k=3),
                                     dict(backend="shard_map")])
     def test_unported_options_raise(self, kw):
+        kw = {"top_k": 4, **kw}
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_engine(4, **kw)
+            port_engine(**kw)
 
     def test_run_raw_raises(self):
+        """The raw entry point is ported; its sharded ingest is not, and
+        it still needs a FeatureConfig."""
+        from repro_torch.core.signature_engine import SignatureConfig
+        from repro_torch.data.features import FeatureConfig
+
+        raw = np.zeros((2, 3, 4), np.float32)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_engine(4).run_raw(np.zeros((2, 3, 4)), None)
+            port_engine(4).run_raw(raw, FeatureConfig(kind="identity"),
+                                   signature_cfg=SignatureConfig(
+                                       backend="shard_map"))
+        with pytest.raises(TypeError, match="FeatureConfig"):
+            port_engine(4).run_raw(raw, None)
 
     @pytest.mark.parametrize("backend,expect", [("jnp", "torch"),
                                                 ("pallas", "torch"),
