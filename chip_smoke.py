@@ -16,7 +16,12 @@ Algorithm 2) at full width:
   [3c] raw data: the paper's CIFAR two-task layout, N=1024 users x
        n=252 rows x m=3072 pixels, T=2, through a shared random
        projection to d=512 (the paper's CIFAR feature width), streamed
-       in 128-row chunks, with the top-k subspace iteration.
+       in 128-row chunks, with the top-k subspace iteration;
+  [3d] the landmark (Nystrom) sketch on phase 3's users: every user
+       scored against 128 landmark projectors by the assign wave kernel;
+  [3e] membership serving: ``launch.membership.run_cell`` seeds a
+       directory from 1024 users, then serves six waves of 128 arrivals
+       with churn and task drift, re-clustering when drift trips.
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -31,6 +36,7 @@ non-zero and prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -44,11 +50,27 @@ BLOCK_USERS = 128
 # Raw path: the paper's CIFAR two-task layout (Fig. 2) at 512 users per
 # task, raw 32x32x3 pixels, projected to d=512, streamed in row chunks.
 RAW_USERS_PER_TASK, RAW_ROWS_PER_USER, RAW_CHUNK_ROWS = 512, 256, 128
+# Landmark path: landmark projectors (128 x 512 x 512 f32 = 128 MiB).
+LANDMARKS = 128
+# Serving cell: launch.membership arguments, directory f32, bf16 compute.
+SERVING_ARGS = ["--seed-users", "1024", "--samples", "256", "--dim", "512",
+                "--tasks", "4", "--top-k", "8", "--waves", "6",
+                "--wave-size", "128", "--evict", "32", "--scenario", "drift",
+                "--drift-after", "3", "--unassigned-frac", "0.05",
+                "--backend", "torch", "--device", "cuda"]
+# The JAX reference on this exact cell (CPU, fp32 scoring): unassigned
+# fraction after each wave, and the waves that re-clustered.
+REF_SERVING_UNASSIGNED = {3: 0.044, 4: 0.081, 5: 0.039}
+REF_SERVING_RECLUSTER_WAVES = [4]
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+# bf16 dense tensor-core peak, for the assign kernels' second bound.
+PEAK_BF16_FLOPS = 989e12
+# bf16 assign kernels against their bf16 plain versions, x max|plain|.
+ASSIGN_BF16_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -121,6 +143,30 @@ def check_close(torch, name, out, ref, tol) -> float:
     return err
 
 
+def check_assign(torch, name, got, want, k, compute_dtype, quiet=False
+                 ) -> float:
+    """An assign kernel's ``(aff / k, labels, margin / k)`` against its
+    plain version's RAW outputs; returns max|err| / max|plain| over the
+    finite affinities."""
+    aff, labels, margin = got[0] * k, got[1], got[2] * k
+    p_aff, p_labels, p_margin = want
+    require(torch.equal(torch.isinf(aff), torch.isinf(p_aff)),
+            f"{name}: dead prototypes differ")
+    fin = torch.isfinite(p_aff)
+    scale = float(p_aff[fin].abs().max())
+    err = float((aff[fin].double() - p_aff[fin].double()).abs().max()) / scale
+    tol = 1e-4 if compute_dtype == "fp32" else ASSIGN_BF16_TOL
+    if not quiet:
+        print(f"  {name}: max_abs_err / max|plain| {err:.3e} (tolerance "
+              f"{tol:g})")
+    require(err <= tol, f"{name}: kernel disagrees with plain ({err:.3e})")
+    decided = (p_margin > tol * scale) if compute_dtype == "bf16" \
+        else torch.ones_like(p_labels, dtype=torch.bool)
+    require(torch.equal(labels[decided], p_labels[decided]),
+            f"{name}: labels differ from plain")
+    return err
+
+
 def main() -> int:
     import torch
 
@@ -152,6 +198,13 @@ def main() -> int:
     from repro_torch.kernels.linkage import (LINKAGES, linkage_step,
                                              linkage_step_ref, nn_chain,
                                              nn_chain_ref)
+    from repro_torch.kernels import quant
+    from repro_torch.kernels.assign import (assign, assign_looped,
+                                            assign_looped_plain,
+                                            assign_wave_plain)
+    from repro_torch.launch import membership as launch_membership
+    from repro_torch.core.engine import landmark_indices
+    from repro_torch.core.membership_engine import MembershipEngine
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -263,6 +316,70 @@ def main() -> int:
                     f"({d}, {k_cols})",
                     batched_gram_project(x, v, counts.float()),
                     gram_project_ref(x, v, counts.float()), 1e-5)
+
+    # assign_wave and assign_one: every directory dtype, both compute
+    # dtypes, B = 1 and B not a multiple of the arrival tile (B = 200 and
+    # 300 take the 2- and 4-arrival blocks on a 132-SM card, the others
+    # 1 or 8), T = 1 and T = 130, d in (100, 512), k in (3, 8), dead
+    # prototypes.  fp32 is
+    # held to the reference's 1e-4 x max|plain| (a d = 512 affinity sums
+    # 262,144 terms); bf16 to ASSIGN_BF16_TOL x max|plain|: both sides
+    # round the same bf16 inputs, so only fp32 summation order and the
+    # rare bf16 rounding of an s_ij that the two sides sum in different
+    # order separate them (measured below 4e-6).  Labels must be equal
+    # (bf16: wherever the plain margin exceeds the tolerance).
+    assign_errs = {"fp32": 0.0, "bf16": 0.0}
+    for b_, t_, d_, k_ in [(1, 4, 512, 8), (13, 130, 100, 3),
+                           (9, 1, 512, 8), (20, 130, 512, 8),
+                           (1, 1, 100, 3), (200, 5, 100, 8),
+                           (300, 33, 100, 3), (1100, 2, 100, 8)]:
+        v = randn(b_, d_, k_)
+        p = randn(t_, d_, d_)
+        p = (p + p.transpose(1, 2)) / 2
+        live = (torch.rand(t_, generator=gen) > 0.2).float().to(dev)
+        live[0] = 1.0
+        for dt in quant.DIRECTORY_DTYPES:
+            table, scales = quant.quantize_directory(p, dt)
+            for cd in ("fp32", "bf16"):
+                got = assign(v, table, live, cd, scales=scales)
+                want = assign_wave_plain(v, table, scales, live, cd)
+                assign_errs[cd] = max(assign_errs[cd], check_assign(
+                    torch, f"assign_wave ({b_}, {t_}, {d_}, {k_}) {dt} {cd}",
+                    got, want, k_, cd, quiet=True))
+                if dt != "int8":
+                    got = assign_looped(v, table, live, cd)
+                    want = assign_looped_plain(v, table, live, cd)
+                    assign_errs[cd] = max(assign_errs[cd], check_assign(
+                        torch, f"assign_one ({b_}, {t_}, {d_}, {k_}) {dt} "
+                        f"{cd}", got, want, k_, cd, quiet=True))
+    print(f"  assign_wave, assign_one: 8 shapes x 3 directory dtypes x 2 "
+          f"compute dtypes, dead prototypes: max|kernel - plain| / "
+          f"max|plain| fp32 {assign_errs['fp32']:.3e} (tolerance 1e-4), "
+          f"bf16 {assign_errs['bf16']:.3e} (tolerance {ASSIGN_BF16_TOL:g}), "
+          f"labels equal")
+    v = randn(13, 512, 8)
+    p = randn(3, 512, 512)
+    tie = torch.cat([p[:1], p[:1]])
+    for fn in (assign, assign_looped):
+        for cd in ("fp32", "bf16"):
+            _, lab, mar = fn(v, tie, None, cd)
+            require(bool((lab == 0).all()) and bool((mar == 0).all()),
+                    f"{fn.__name__} {cd}: tied prototypes must give label 0 "
+                    f"and margin 0")
+            _, lab, mar = fn(v, p, torch.zeros(3, device=dev), cd)
+            require(bool((lab == 0).all()) and bool(torch.isnan(mar).all()),
+                    f"{fn.__name__} {cd}: an all-dead directory must give "
+                    f"label 0 and a NaN margin")
+            _, lab, mar = fn(v, p, torch.tensor([0., 1., 0.], device=dev),
+                             cd)
+            require(bool((lab == 1).all()) and bool(torch.isinf(mar).all()),
+                    f"{fn.__name__} {cd}: one live prototype must win with "
+                    f"margin +inf")
+            aff, lab, mar = fn(v, p[:1], None, cd)
+            require(bool((lab == 0).all()) and torch.equal(mar, aff[:, 0]),
+                    f"{fn.__name__} {cd}: T = 1 must give margin = affinity")
+    print("  assign edges: ties (label 0, margin 0), all dead (label 0, "
+          "NaN margin), one live (+inf margin), T = 1 (margin = affinity)")
     phase_done("phase 2")
 
     # -- Phase 3: the main path at full width -----------------------------
@@ -504,6 +621,125 @@ def main() -> int:
     del grams_r, r_stage, dend_r
     phase_done("phase 3c")
 
+    # -- Phase 3d: the landmark (Nystrom) sketch --------------------------
+    print(f"[3d] landmark path: one_shot_clustering landmarks={LANDMARKS} "
+          f"on the phase-3 users")
+    cfg_l = sim.SimilarityConfig(top_k=TOP_K, landmarks=LANDMARKS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    res_l = one_shot_clustering(x, TASKS, cfg=cfg_l, cluster_cfg=ccfg,
+                                device=dev)
+    labels_l = res_l.labels.cpu().numpy()
+    wall_l = time.perf_counter() - t0
+    launches_l = dict(dispatch.LAUNCHES)
+    _, mem_text = memory_line(torch, live)
+    acc_l = clu.clustering_accuracy(labels_l, task_ids)
+    r_l = res_l.similarity
+    print(f"  launches: {launches_l}")
+    print(f"  wall {wall_l:.3f} s, {mem_text}, clustering accuracy "
+          f"{acc_l:.1%}, R in [{float(r_l.min()):.3e}, "
+          f"{float(r_l.max()):.3e}]")
+    require(launches_l["assign_wave"] == 1,
+            f"landmark path launched assign_wave "
+            f"{launches_l['assign_wave']} times, not once")
+    require(launches_l["linkage"] >= 1, "landmark path never launched "
+            "linkage")
+    require(tuple(r_l.shape) == (N_USERS, N_USERS)
+            and bool(torch.isfinite(r_l).all()) and torch.equal(r_l, r_l.T)
+            and float(r_l.min()) >= 0.0 and float(r_l.max()) <= 1.0,
+            "landmark R is not a finite symmetric matrix in [0, 1]")
+    require(acc_l == 1.0, f"landmark clustering accuracy {acc_l:.4f} < 1")
+    land_idx = torch.from_numpy(landmark_indices(N_USERS, LANDMARKS)).to(
+        dev).long()
+    v_land = res_l.v[land_idx]
+    land_protos = torch.einsum("mdk,mek->mde", v_land, v_land)
+    land_v = res_l.v.contiguous()
+    del res_l, r_l
+    phase_done("phase 3d")
+
+    # -- Phase 3e: membership serving ---------------------------------------
+    print("[3e] serving: launch.membership.run_cell " + " ".join(
+        SERVING_ARGS))
+    serve_args = launch_membership.build_parser().parse_args(SERVING_ARGS)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    cell, served, (lam_last, v_last) = launch_membership.run_cell(
+        serve_args, serve_args.scenario, serve_args.arrivals, verbose=True,
+        return_state=True)
+    wall_s = time.perf_counter() - t0
+    launches_s = dict(dispatch.LAUNCHES)
+    _, mem_text = memory_line(torch, live)
+    print(f"  launches: {launches_s}")
+    print(f"  wall {wall_s:.3f} s (seed protocol {cell['seed_s']:.3f} s), "
+          f"{mem_text}")
+    print("  per-wave assign ms "
+          + ", ".join(f"{t:.3f}" for t in cell["assign_ms"])
+          + "; admit ms " + ", ".join(f"{t:.3f}" for t in cell["admit_ms"]))
+    print(f"  re-clusters at waves {cell['recluster_waves']} (reference "
+          f"{REF_SERVING_RECLUSTER_WAVES}), ms "
+          + ", ".join(f"{t:.3f}" for t in cell["recluster_ms"])
+          + f", members {cell['recluster_members']}")
+    print("  unassigned after each wave "
+          + ", ".join(f"{u:.1%}" for u in cell["unassigned_per_wave"])
+          + " (reference " + ", ".join(
+              f"wave {w}: {u:.1%}" for w, u in
+              REF_SERVING_UNASSIGNED.items())
+          + f"); {cell['n_members']} members at the end (reference 1600)")
+    require(cell["seed_accuracy"] == 1.0,
+            f"serving seed accuracy {cell['seed_accuracy']:.4f} < 1")
+    require(all(a == 1.0 for a in cell["accuracy_per_wave"]),
+            f"serving honest accuracy per wave {cell['accuracy_per_wave']}")
+    require(cell["n_reclusters"] >= 1, "serving cell never re-clustered")
+    require(launches_s["assign_wave"] == serve_args.waves,
+            f"serving cell launched assign_wave "
+            f"{launches_s['assign_wave']} times for {serve_args.waves} "
+            f"waves")
+
+    # The last wave scored again against bf16 and int8 directories.
+    st = served.state
+    f32_labels = served.assign(lam_last, v_last).labels
+    agreement = {}
+    for dt in ("bf16", "int8"):
+        table, scales = quant.quantize_directory(st.protos_f32, dt)
+        q_state = dataclasses.replace(st, protos=table, protos0=table,
+                                      proto_scales=scales,
+                                      proto0_scales=scales)
+        q_engine = MembershipEngine(dataclasses.replace(
+            served.cfg, directory_dtype=dt), device=dev)
+        q_engine.state = q_state
+        q_labels = q_engine.assign(lam_last, v_last).labels
+        agreement[dt] = (float((q_labels == f32_labels).float().mean()),
+                         st.directory_bytes / q_state.directory_bytes)
+    print("  last wave re-scored: " + ", ".join(
+        f"{dt} directory labels agree with f32 on {a:.1%}, f32 bytes / "
+        f"{dt} bytes {r:.5f}" for dt, (a, r) in agreement.items()))
+    require(all(a >= 0.99 for a, _ in agreement.values()),
+            "quantized directories disagree with f32 on more than 1%")
+    require(agreement["bf16"][1] == 2.0 and 3.8 < agreement["int8"][1] <= 4.0,
+            "directory byte ratios are off")
+    # The per-arrival baseline on the same wave, through its public
+    # entry point: one assign_one launch for the wave.
+    dispatch.reset_launches()
+    v_dev = torch.as_tensor(v_last).to(dev)
+    base = assign_looped(v_dev, st.protos, st.counts > 0,
+                         served.cfg.compute_dtype)
+    launches_one = dispatch.LAUNCHES["assign_one"]
+    wave_out = assign(v_dev, st.protos, st.counts > 0,
+                      served.cfg.compute_dtype)
+    same = float((base[1] == wave_out[1]).float().mean())
+    print(f"  per-arrival baseline (assign_looped, {launches_one} launch): "
+          f"argmax agrees with the wave kernel on {same:.1%}")
+    require(launches_one == 1 and same >= 0.99,
+            "assign_looped disagrees with assign on the last wave")
+    serve_protos = st.protos
+    phase_done("phase 3e")
+
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "
           "shapes (CUDA events)")
@@ -629,6 +865,90 @@ def main() -> int:
         launches=launches_b["gram_project"], max_abs_err=gp_err,
         ms=t_kernel, plain_ms=t_plain, bound_ms=b, bound_by=by,
         library_ms=t_lib))
+    # assign_wave at the landmark path's shape (f32 table, bf16 inputs)
+    # and at the serving cell's (f32 and int8 tables); assign_one at the
+    # serving shape.  Library call: the reference's own formulation in
+    # cuBLAS, S = einsum("bdk,bek->bde") then S @ P_flat^T in the compute
+    # dtype.  Bounds: operations over the fp32 CUDA-core peak (what this
+    # first version runs on) and, beside it, over the bf16 tensor cores.
+
+    def library_assign(v, p, cd):
+        b_, d_, _ = v.shape
+        dtype = torch.bfloat16 if cd == "bf16" else torch.float32
+        s_ = torch.einsum("bdk,bek->bde", v, v).reshape(b_, d_ * d_)
+        return s_.to(dtype) @ p.reshape(p.shape[0], -1).to(dtype).T
+
+    def assign_entry(name, v, table, scales, cd, reps):
+        b_, d_, k_ = v.shape
+        t_ = table.shape[0]
+        err = check_assign(
+            torch, f"{name} ({b_}, {t_}, {d_}, {k_}) {table.dtype} {cd}",
+            assign(v, table, None, cd, scales=scales),
+            assign_wave_plain(v, table, scales, None, cd), k_, cd)
+        p_f = quant.dequantize_directory(table, scales)
+        ops = 2.0 * b_ * d_ * d_ * (k_ + t_)
+        nbytes = (4.0 * b_ * d_ * k_ + table.element_size() * t_ * d_ * d_
+                  + 4.0 * b_ * t_)
+        b, by = bound_ms(ops, nbytes)
+        return dict(
+            max_abs_err=err,
+            ms=time_ms(torch, lambda: assign(v, table, None, cd,
+                                             scales=scales), reps),
+            plain_ms=time_ms(torch, lambda: assign_wave_plain(
+                v, table, scales, None, cd), reps),
+            bound_ms=b, bound_by=by,
+            bound_tensor_ms=max(ops / PEAK_BF16_FLOPS * 1e3,
+                                nbytes / PEAK_BYTES_PER_S * 1e3),
+            library_ms=time_ms(torch, lambda: library_assign(v, p_f, cd),
+                               reps))
+
+    wave = assign_entry("assign_wave", land_v, land_protos, None, "bf16", 3)
+    serve_v = torch.as_tensor(v_last).to(dev).contiguous()
+    serve_f32 = quant.dequantize_directory(serve_protos)
+    serving = {}
+    for dt in ("f32", "int8"):
+        table, scales = quant.quantize_directory(serve_f32, dt)
+        serving[dt] = assign_entry("assign_wave", serve_v, table, scales,
+                                   "bf16", 10)
+    kernels.append(dict(
+        name="assign_wave", route="cuda",
+        source="src/repro_torch/kernels/csrc/assign.cu",
+        replaces="src/repro/kernels/assign/assign.py:85",
+        launches=launches_l["assign_wave"] + launches_s["assign_wave"],
+        launches_by_path={"landmarks": launches_l["assign_wave"],
+                          "serving": launches_s["assign_wave"]},
+        shape=[int(n) for n in (*land_v.shape, land_protos.shape[0])],
+        **wave, serving=serving))
+
+    b_, d_, k_ = serve_v.shape
+    t_ = serve_f32.shape[0]
+    one_err = check_assign(
+        torch, f"assign_one ({b_}, {t_}, {d_}, {k_}) f32 bf16",
+        assign_looped(serve_v, serve_f32, None, "bf16"),
+        assign_looped_plain(serve_v, serve_f32, None, "bf16"), k_, "bf16")
+    ops = 2.0 * b_ * t_ * d_ * d_ * k_
+    nbytes = 4.0 * (t_ * d_ * d_ + b_ * d_ * k_ + b_ * t_)
+    b, by = bound_ms(ops, nbytes)
+    kernels.append(dict(
+        name="assign_one", route="cuda",
+        source="src/repro_torch/kernels/csrc/assign.cu",
+        replaces="src/repro/kernels/assign/assign.py:192",
+        launches=launches_one, max_abs_err=one_err,
+        ms=time_ms(torch, lambda: assign_looped(serve_v, serve_f32, None,
+                                                "bf16"), 10),
+        plain_ms=time_ms(torch, lambda: assign_looped_plain(
+            serve_v, serve_f32, None, "bf16"), 10),
+        bound_ms=b, bound_by=by,
+        bound_tensor_ms=max(ops / PEAK_BF16_FLOPS * 1e3,
+                            nbytes / PEAK_BYTES_PER_S * 1e3),
+        library_ms=time_ms(torch, lambda: library_assign(serve_v, serve_f32,
+                                                         "bf16"), 10),
+        shape=[b_, d_, k_, t_]))
+    for dt, e in serving.items():
+        print(f"  assign_wave serving shape ({b_}, {t_}, {d_}, {k_}) {dt} "
+              f"table: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
+              f"{e['library_ms']:.3f}, bound {e['bound_ms']:.4f} fp32 / "
+              f"{e['bound_tensor_ms']:.4f} bf16 tensor cores)")
     for kern in kernels:
         lib = kern["library_ms"]
         print(f"  {kern['name']}: {kern['ms']:.3f} ms (plain "

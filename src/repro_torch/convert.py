@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cluster_engine import ClusterConfig
+from repro_torch.core.membership_engine import MembershipConfig
 from repro_torch.core.signature_engine import SignatureConfig
 from repro_torch.core.similarity import SimilarityConfig
 from repro_torch.data.features import FeatureConfig
@@ -23,7 +24,8 @@ from repro_torch.kernels.dispatch import resolve_device
 __all__ = ["similarity_config_from_reference",
            "cluster_config_from_reference", "signatures_from_reference",
            "feature_config_from_reference",
-           "signature_config_from_reference", "phi_params_from_reference"]
+           "signature_config_from_reference", "phi_params_from_reference",
+           "membership_config_from_reference"]
 
 
 def similarity_config_from_reference(cfg) -> SimilarityConfig:
@@ -84,3 +86,23 @@ def phi_params_from_reference(params: dict,
     dev = resolve_device(device)
     return {k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
             for k, v in params.items()}
+
+
+def membership_config_from_reference(cfg) -> MembershipConfig:
+    """A reference ``MembershipConfig`` -> the port's.  ``numpy`` stays;
+    ``pallas`` maps to ``torch`` with the same ``compute_dtype``; ``jnp``
+    maps to ``torch`` with ``compute_dtype="fp32"``, because the
+    reference's jnp path scores with the fp32 ``assign_ref``.  Seed the
+    port's engine from the reference's ``lam``, ``v`` and labels through
+    ``MembershipEngine.seed``, which takes numpy."""
+    backend = "numpy" if cfg.backend == "numpy" else "torch"
+    compute = "fp32" if cfg.backend == "jnp" else cfg.compute_dtype
+    return MembershipConfig(
+        backend=backend, capacity=cfg.capacity,
+        affinity_floor=cfg.affinity_floor, margin_floor=cfg.margin_floor,
+        recluster_unassigned_frac=cfg.recluster_unassigned_frac,
+        recluster_proto_shift=cfg.recluster_proto_shift,
+        eig_floor=cfg.eig_floor, aggregator=cfg.aggregator,
+        trim_frac=cfg.trim_frac, mom_groups=cfg.mom_groups,
+        drift_stat=cfg.drift_stat, linkage=cfg.linkage,
+        compute_dtype=compute, directory_dtype=cfg.directory_dtype)

@@ -10,13 +10,18 @@ Mirrors the single-device paths of ``src/repro/core/engine.py``:
     Grams give its signatures and die, then each tile's relevance rows
     come Gram-free from ``||G_i v|| = ||F_i^T (F_i v)|| / n_i`` against
     the whole signature table, one ``gram_project`` launch per tile;
+  * **landmarks** (``landmarks = m > 0``): the Nystrom-sketched path.
+    The signatures come tile by tile as on the blockwise path; every
+    user is then scored against the m landmark projectors ``V_j V_j^T``
+    by the ``assign`` wave kernel, one launch per tile of users, and R
+    is completed from that ``(N, m)`` block as ``C W^+ C^T``;
   * **raw** (``run_raw``): raw shards + a ``FeatureConfig`` go through
     the ``SignatureEngine`` (streamed featurize -> Gram, batched top-k
     subspace iteration) before the relevance stage.
 
-Everything stays on the engine's device.  Not ported yet, and rejected
-with ``NotImplementedError`` naming the ROADMAP item that ports them:
-the landmark sketch (``landmarks``) and the sharded backend.
+Everything stays on the engine's device.  The sharded backend is not
+ported yet and raises ``NotImplementedError`` naming ROADMAP Queue 1
+item 13.
 """
 from __future__ import annotations
 
@@ -27,10 +32,11 @@ import torch
 
 from repro_torch.core import signature_engine as sig
 from repro_torch.core import similarity as sim
+from repro_torch.kernels.assign import ops as assign_ops
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.gram_project import ops as gp_ops
 
-__all__ = ["ProtocolEngine", "ProtocolResult"]
+__all__ = ["ProtocolEngine", "ProtocolResult", "landmark_indices"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +79,25 @@ def _tile_rows(features: torch.Tensor, n_valid: torch.Tensor,
     return sim.relevance(lam_tile[:, None, :], lam_hat, eig_floor)
 
 
+def landmark_indices(n: int, m: int) -> np.ndarray:
+    """``m`` deterministic landmark user ids out of ``n``, NESTED: every
+    set is a prefix of one fixed seeded permutation, so the set for any
+    ``m' > m`` contains the set for ``m`` and the Nystrom error can only
+    shrink as landmarks are added.  The same ids as the reference's."""
+    if not 0 < m <= n:
+        raise ValueError(f"need 0 < m <= n, got m={m}, n={n}")
+    return np.random.default_rng(0x5EED).permutation(n)[:m].astype(np.int32)
+
+
+def _nystroem_complete(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``R ~= C W^+ C^T`` from the scored columns ``C (N, m)`` and the
+    landmark block ``W (m, m)``, symmetrized and clipped to [0, 1] (pinv
+    noise can leave tiny negatives or spill above 1).  The pseudo-inverse
+    is a library call, as ``jnp.linalg.pinv`` is in the reference."""
+    r = c @ torch.linalg.pinv(w, rtol=1e-6) @ c.T
+    return torch.clamp(sim.symmetrize(r), 0.0, 1.0)
+
+
 def _raw_finish(grams: torch.Tensor, top_k: int, eig_floor: float,
                 engine: "sig.SignatureEngine"):
     """Gram stack -> ``(r, R, resid, lam, v)``: top-k spectrum (subspace
@@ -100,10 +125,6 @@ class ProtocolEngine:
             raise NotImplementedError(
                 "the sharded protocol backend is not ported yet "
                 "(ROADMAP Queue 1 item 13)")
-        if cfg.landmarks:
-            raise NotImplementedError(
-                "the landmark-sketched path (landmarks > 0) is not ported "
-                "yet (ROADMAP Queue 1 item 9)")
         self.cfg = cfg
         self.device = resolve_device(device)
 
@@ -132,7 +153,10 @@ class ProtocolEngine:
         return lam, v, grams
 
     def _dispatch(self, feats: torch.Tensor, nv: torch.Tensor):
-        """Dense or blockwise on prepared inputs -> ``(r, R, lam, v)``."""
+        """Dense, blockwise or landmarks on prepared inputs ->
+        ``(r, R, lam, v)``."""
+        if self.cfg.landmarks:
+            return self._run_landmarks(feats, nv)
         if self.cfg.block_users:
             return self._run_blockwise(feats, nv)
         return _dense_protocol(feats, nv, self._top_k(feats.shape[-1]),
@@ -166,6 +190,40 @@ class ProtocolEngine:
                 for s in range(0, n_total, block)]
         r = torch.cat(rows)[:n_users, :n_users]
         return r, sim.symmetrize(r), lam_all[:n_users], v_all[:n_users]
+
+    def _run_landmarks(self, feats: torch.Tensor, nv: torch.Tensor):
+        """Nystrom-sketched path -> ``(R, R, lam, v)``.
+
+        Pass 1 makes the signature table in tiles of ``min(2048, N)``
+        users (their Grams die with the tile).  Pass 2 scores every user
+        against the m landmark projectors ``V_j V_j^T`` with the assign
+        wave kernel, ``C[i, j] = ||V_j^T V_i||_F^2 / k``, one launch per
+        tile, in bf16 inputs with fp32 sums as the reference's
+        accelerator path does; ``_nystroem_complete`` fills in the rest.
+        The sketch is symmetric, so the directed slot returns it too.
+        """
+        n_users, _, d = feats.shape
+        m = self.cfg.landmarks
+        if m >= n_users:
+            raise ValueError(
+                f"landmarks={m} must be < n_users={n_users}: the sketch "
+                "only pays when m << N; drop landmarks to 0 and run the "
+                "exact dense path instead")
+        top_k = self._top_k(d)
+        tile = min(2048, n_users)
+        tiles = [_tile_signatures(feats[s:s + tile], nv[s:s + tile], top_k)
+                 for s in range(0, n_users, tile)]
+        lam_all = torch.cat([t[0] for t in tiles])            # (N, k)
+        v_all = torch.cat([t[1] for t in tiles])              # (N, d, k)
+        idx = torch.from_numpy(landmark_indices(n_users, m)).to(
+            feats.device).long()
+        v_land = v_all[idx]
+        protos = torch.einsum("mdk,mek->mde", v_land, v_land)  # (m, d, d)
+        c = torch.cat([assign_ops.assign(v_all[s:s + tile], protos,
+                                         compute_dtype="bf16")[0]
+                       for s in range(0, n_users, tile)])      # (N, m)
+        big_r = _nystroem_complete(c, c[idx])
+        return big_r, big_r, lam_all, v_all
 
     def relevance_and_similarity(self, features, n_valid=None
                                  ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -215,6 +273,11 @@ class ProtocolEngine:
                 "run_raw computes relevance on the (N, d', d') Gram stack "
                 "and does not support block_users streaming; stream the "
                 "ROW axis instead via SignatureConfig.chunk_rows")
+        if self.cfg.landmarks:
+            raise ValueError(
+                "run_raw computes exact relevance on the Gram stack and "
+                "does not support the landmark sketch; featurize first "
+                "and use run() with landmarks > 0")
         engine = self._signature_engine(feature_cfg, signature_cfg, probe)
         full = (n_valid is None
                 and isinstance(raw, (torch.Tensor, np.ndarray)))

@@ -1,9 +1,10 @@
 """One-shot clustering protocol (paper Algorithm 2), PyTorch port.
 
 Mirrors ``src/repro/core/oneshot.py`` on one device: the
-``ProtocolEngine`` (Eqs. 1-5; dense, blockwise, or from raw data), the
-``ClusterEngine`` (HAC + cut) and the communication ledger.  With the torch cluster backend, ``R`` and the
-labels stay on the device from protocol to labels.
+``ProtocolEngine`` (Eqs. 1-5; dense, blockwise, landmarks, or from raw
+data), the ``ClusterEngine`` (HAC + cut) and the communication ledger.
+With the torch cluster backend, ``R`` and the labels stay on the device
+from protocol to labels.
 """
 from __future__ import annotations
 

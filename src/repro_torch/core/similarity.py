@@ -38,8 +38,12 @@ __all__ = [
     "relevance",
     "relevance_matrix",
     "symmetrize",
+    "signature_relevance",
     "similarity_matrix",
 ]
+
+#: Largest ``(rows, N, k, k)`` block of ``signature_relevance``, in floats.
+_SIG_BLOCK_ELEMS = 1 << 24
 
 #: ``"torch"`` runs on one device; ``"shard_map"`` (users sharded over
 #: devices) is kept so reference configs convert, and is not ported yet.
@@ -57,7 +61,9 @@ class SimilarityConfig:
       backend: ``"torch"`` or ``"shard_map"`` (not ported yet).
       block_users: ``> 0`` selects blockwise streaming: users in tiles
         of this size, Grams only per tile, Gram-free cross-projection.
-      landmarks: ``> 0`` selects the Nystrom-sketched path (not ported yet).
+      landmarks: ``> 0`` selects the Nystrom-sketched path: every user is
+        scored against this many landmark projectors, and R is completed
+        from that block.
       mesh_axis: mesh axis users are sharded over (shard_map backend).
 
     Kernel choice is not configured: it follows the tensors' device.
@@ -234,6 +240,29 @@ def relevance_matrix(grams: torch.Tensor, lams: torch.Tensor,
 def symmetrize(r: torch.Tensor) -> torch.Tensor:
     """``R = (r + r^T) / 2``: the GPS-side average of the two views."""
     return (r + r.T) / 2.0
+
+
+def signature_relevance(lam: torch.Tensor, v: torch.Tensor,
+                        eig_floor: float = 1e-6) -> torch.Tensor:
+    """Symmetrized relevance ``R (N, N)`` from SHARED signatures only.
+
+    Rank-k Gram reconstruction: ``G_i v ~ V_i diag(lam_i) (V_i^T v)``, so
+    ``lamhat(i, j) = ||diag(lam_i) (V_i^T V_j)||`` column-wise: O(k^2 d)
+    per pair and no private Gram.  The membership re-cluster uses it.
+    Rows go in blocks so the ``(rows, N, k, k)`` products stay below
+    ``_SIG_BLOCK_ELEMS`` floats, as the reference's row map keeps its
+    peak memory O(N k^2).
+    """
+    n, _, k = v.shape
+    rows = max(1, _SIG_BLOCK_ELEMS // max(n * k * k, 1))
+    out = []
+    for s in range(0, n, rows):
+        lam_i = lam[s:s + rows]
+        c = torch.einsum("rdk,ndl->rnkl", v[s:s + rows], v)   # (R, N, k, k)
+        lam_hat = torch.sqrt(((lam_i[:, None, :, None] * c) ** 2)
+                             .sum(dim=2))                     # (R, N, k)
+        out.append(relevance(lam_i[:, None, :], lam_hat, eig_floor))
+    return symmetrize(torch.cat(out))
 
 
 def similarity_matrix(features, cfg: SimilarityConfig | None = None,

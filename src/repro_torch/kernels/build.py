@@ -43,9 +43,15 @@ _SIGNATURES = {
     "repro_featurize_gram_rows": (_I,),
     "repro_gram_project": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_gram_project_slab": (_I,),
+    "repro_assign_wave": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _P),
+    "repro_assign_one": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P),
+    "repro_assign_one_smem": (_I, _I),
     "repro_error_string": (_I,),
 }
 _RESTYPES = {"repro_nn_chain_smem": ctypes.c_int64,
+             "repro_assign_one_smem": ctypes.c_int64,
              "repro_error_string": ctypes.c_char_p}
 
 

@@ -17,7 +17,8 @@ __all__ = ["LAUNCHES", "resolve_device", "device_kind", "on_cuda",
 #: wrapper adds one where it launches its kernel, and nowhere else.
 LAUNCHES: dict[str, int] = {"gram": 0, "eigproject": 0, "linkage": 0,
                             "linkage_step": 0, "featurize_gram": 0,
-                            "gram_project": 0}
+                            "gram_project": 0, "assign_wave": 0,
+                            "assign_one": 0}
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

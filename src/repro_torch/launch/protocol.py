@@ -11,6 +11,11 @@ synthetic multi-task feature mixture.
   PYTHONPATH=src python -m repro_torch.launch.protocol --users 1024 \\
       --block-users 128
 
+  # Nystrom-sketched relevance: every user scored against 64 landmark
+  # projectors by the assign kernel, R completed from that block
+  PYTHONPATH=src python -m repro_torch.launch.protocol --users 512 \\
+      --landmarks 64
+
   # raw-data entry point: Phi + Gram streamed in row chunks, batched
   # top-k subspace iteration
   PYTHONPATH=src python -m repro_torch.launch.protocol --users 512 \\
@@ -41,6 +46,9 @@ def main(argv: list[str] | None = None) -> float:
                     choices=["average", "single", "complete"])
     ap.add_argument("--block-users", type=int, default=0,
                     help="> 0 enables blockwise streaming")
+    ap.add_argument("--landmarks", type=int, default=0,
+                    help="> 0 enables the Nystrom-sketched path: users are "
+                         "scored against this many landmark signatures")
     ap.add_argument("--raw-dim", type=int, default=0,
                     help="> 0 enables the RAW-DATA entry point: users hand "
                          "raw m-dim shards and the SignatureEngine "
@@ -76,7 +84,8 @@ def main(argv: list[str] | None = None) -> float:
     mix_dim = args.raw_dim if raw_mode else args.dim
     feats, task_ids = make_task_feature_mixture(
         args.users, args.samples, mix_dim, args.tasks, seed=args.seed)
-    cfg = SimilarityConfig(top_k=args.top_k, block_users=args.block_users)
+    cfg = SimilarityConfig(top_k=args.top_k, block_users=args.block_users,
+                           landmarks=args.landmarks)
     ccfg = ClusterConfig(backend=args.cluster_backend, linkage=args.linkage)
     feature_cfg = signature_cfg = None
     shape = f"d={args.dim}"
@@ -90,7 +99,8 @@ def main(argv: list[str] | None = None) -> float:
     print(f"{args.users} users x {args.samples} samples x {shape}, "
           f"{args.tasks} tasks | device={device_kind(device)} "
           f"cluster_backend={args.cluster_backend} "
-          f"block_users={args.block_users} raw={raw_mode} "
+          f"block_users={args.block_users} landmarks={args.landmarks} "
+          f"raw={raw_mode} "
           f"chunk_rows={args.chunk_rows}")
 
     t0 = time.perf_counter()

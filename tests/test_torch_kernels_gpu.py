@@ -10,7 +10,11 @@ Tolerances: the gram, eigproject, featurize_gram (fp32) and
 gram_project kernels sum in fp32 in another order than cuBLAS, so they
 agree to 1e-5 of the largest entry; featurize_gram in bf16 is held to
 the reference's 2e-2 of the largest entry; the linkage kernels use the
-plain version's IEEE operations and agree exactly.
+plain version's IEEE operations and agree exactly.  The assign kernels
+agree with their plain versions to 1e-4 of the largest affinity in fp32
+(the reference's bar; a d = 512 affinity sums 262,144 terms) and 1e-3
+in bf16 (same bf16 inputs, fp32 sums in another order), with equal
+labels wherever the plain margin exceeds the tolerance.
 """
 import numpy as np
 import pytest
@@ -22,7 +26,10 @@ from repro_torch.core.cluster_engine import ClusterConfig
 from repro_torch.core.oneshot import one_shot_clustering
 from repro_torch.core.similarity import SimilarityConfig
 from repro_torch.data.synthetic import make_task_feature_mixture
-from repro_torch.kernels import dispatch
+from repro_torch.kernels import dispatch, quant
+from repro_torch.kernels.assign import (assign, assign_looped,
+                                        assign_looped_plain,
+                                        assign_wave_plain)
 from repro_torch.kernels.eigproject import (project_norms_all,
                                             project_norms_all_ref)
 from repro_torch.kernels.featurize_gram import (batched_featurize_gram,
@@ -169,3 +176,83 @@ class TestKernelsOnCard:
                                    host(on_cpu.similarity), atol=1e-4)
         assert same_partition(on_card.labels, on_cpu.labels)
         assert clu.clustering_accuracy(host(on_card.labels), tasks) == 1.0
+
+    @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+    @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+    def test_assign_kernels(self, cuda_device, dtype, compute_dtype):
+        torch.manual_seed(0)
+        tol = 1e-4 if compute_dtype == "fp32" else 1e-3
+        for b, n_protos, d, k in [(1, 4, 512, 8), (13, 130, 100, 3),
+                                  (9, 1, 64, 8), (2, 3, 128, 128),
+                                  (200, 5, 100, 8), (300, 33, 64, 3),
+                                  (1100, 2, 64, 8)]:
+            v = torch.randn((b, d, k), device=cuda_device)
+            p = torch.randn((n_protos, d, d), device=cuda_device)
+            mask = (torch.rand(n_protos, device=cuda_device) > 0.2).float()
+            mask[0] = 1.0
+            table, scales = quant.quantize_directory(p, dtype)
+            cases = [("assign_wave", assign(v, table, mask, compute_dtype,
+                                            scales=scales),
+                      assign_wave_plain(v, table, scales, mask,
+                                        compute_dtype))]
+            if dtype != "int8":
+                cases.append(("assign_one",
+                              assign_looped(v, table, mask, compute_dtype),
+                              assign_looped_plain(v, table, mask,
+                                                  compute_dtype)))
+            for name, got, want in cases:
+                aff = got[0] * k
+                assert torch.equal(torch.isinf(aff), torch.isinf(want[0]))
+                fin = torch.isfinite(want[0])
+                close(aff[fin], want[0][fin], tol)
+                decided = want[2] > tol * float(want[0][fin].abs().max())
+                assert torch.equal(got[1][decided], want[1][decided]), name
+
+    @pytest.mark.parametrize("fn", [assign, assign_looped])
+    def test_assign_edges(self, cuda_device, fn):
+        v = torch.randn((11, 64, 4), device=cuda_device)
+        p = torch.randn((3, 64, 64), device=cuda_device)
+        before = dict(dispatch.LAUNCHES)
+        _, lab, mar = fn(v, torch.cat([p[:1], p[:1]]), None, "bf16")
+        assert bool((lab == 0).all()) and bool((mar == 0).all())
+        _, lab, mar = fn(v, p, torch.zeros(3, device=cuda_device), "fp32")
+        assert bool((lab == 0).all()) and bool(torch.isnan(mar).all())
+        _, lab, mar = fn(v, p, torch.tensor([0.0, 1.0, 0.0],
+                                            device=cuda_device), "fp32")
+        assert bool((lab == 1).all()) and bool(torch.isinf(mar).all())
+        aff, lab, mar = fn(v, p[:1], None, "fp32")
+        assert torch.equal(mar, aff[:, 0])
+        name = "assign_wave" if fn is assign else "assign_one"
+        assert dispatch.LAUNCHES[name] == before[name] + 4
+
+    def test_landmarks_and_membership_match_cpu(self, cuda_device):
+        from repro_torch.core.membership_engine import (MembershipConfig,
+                                                        MembershipEngine)
+
+        feats, tasks = make_task_feature_mixture(64, 32, 32, 4, seed=4)
+        cfg = SimilarityConfig(top_k=4, landmarks=16)
+        ccfg = ClusterConfig(backend="torch")
+        dispatch.reset_launches()
+        on_card = one_shot_clustering(feats, 4, cfg=cfg, cluster_cfg=ccfg,
+                                      device=cuda_device)
+        assert dispatch.LAUNCHES["assign_wave"] == 1
+        on_cpu = one_shot_clustering(feats, 4, cfg=cfg, cluster_cfg=ccfg,
+                                     device="cpu")
+        np.testing.assert_allclose(host(on_card.similarity),
+                                   host(on_cpu.similarity), atol=2e-3)
+        assert same_partition(on_card.labels, on_cpu.labels)
+        assert clu.clustering_accuracy(host(on_card.labels), tasks) == 1.0
+        engines = [MembershipEngine.from_oneshot(on_cpu, MembershipConfig(),
+                                                 device=dev)
+                   for dev in (cuda_device, "cpu")]
+        wave, _ = make_task_feature_mixture(16, 32, 32, 4, seed=5)
+        from repro_torch.core.engine import ProtocolEngine
+        lam, v, _ = ProtocolEngine(SimilarityConfig(top_k=4),
+                                   device="cpu").signatures(wave)
+        outs = [e.assign(lam, v) for e in engines]
+        np.testing.assert_array_equal(host(outs[0].labels),
+                                      host(outs[1].labels))
+        for e, out in zip(engines, outs):
+            e.admit(lam, v, out.labels)
+        np.testing.assert_allclose(host(engines[0].state.protos),
+                                   host(engines[1].state.protos), atol=1e-5)

@@ -110,7 +110,10 @@ def test_port_imports_neither_jax_nor_reference():
                                                    "repro_torch.")]
     for name in ("core.oneshot", "core.signature_engine", "data.features",
                  "data.partition", "kernels.featurize_gram.ops",
-                 "kernels.gram_project.ops"):
+                 "kernels.gram_project.ops", "kernels.quant",
+                 "kernels.assign.ops", "kernels.assign.ref",
+                 "core.membership_engine", "core.hierarchy",
+                 "fed.partition", "launch.membership"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
