@@ -31,9 +31,10 @@ Where the reference forms the ``(capacity, d, d)`` outer products of the
 whole table, the port forms each cluster's mean as one
 ``(d, m_t k) @ (m_t k, d)`` product over its members, and the robust
 statistics from one cluster's members at a time: the same sums in
-another fp32 order.  The sharded directory (``assign_sharded``) waits
-for ROADMAP Queue 1 item 13, and the telemetry spans and events of the
-reference for item 12.
+another fp32 order.  The sharded directory (``assign_sharded``, with
+``_verdict_from_affinity``, its verdict from gathered affinity rows)
+waits for ROADMAP Queue 1 item 13, and the telemetry spans and events of
+the reference for item 12.
 """
 from __future__ import annotations
 
@@ -48,7 +49,6 @@ from repro_torch.core.cluster_engine import ClusterConfig, ClusterEngine
 from repro_torch.core.hierarchy import greedy_match_labels
 from repro_torch.kernels import quant
 from repro_torch.kernels.assign import ops as assign_ops
-from repro_torch.kernels.assign.ref import verdict
 from repro_torch.kernels.dispatch import resolve_device
 
 __all__ = ["MembershipConfig", "MembershipEngine", "MembershipState",
@@ -297,15 +297,6 @@ def _apply_floors(labels, best, margin, affinity_floor, margin_floor):
     backend keeps its own host version, and the tests hold them equal)."""
     out = (best < affinity_floor) | (margin < margin_floor)
     return torch.where(out, UNASSIGNED, labels).to(torch.int32)
-
-
-def _verdict_from_affinity(aff, affinity_floor, margin_floor):
-    """``(B, T)`` affinity rows -> ``(labels, margin)`` with the floors:
-    the argmax and margin of ``assign_ref`` and the kernels, for callers
-    that already hold the affinity rows."""
-    labels, margin = verdict(aff)
-    return _apply_floors(labels, aff.max(dim=1).values, margin,
-                         affinity_floor, margin_floor), margin
 
 
 def _wave_outer_sums(v_wave, labels, n_clusters: int):

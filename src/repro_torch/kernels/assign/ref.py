@@ -9,9 +9,11 @@ T = 1).
 arithmetic, compute dtype included, and return their RAW outputs (the
 wrappers divide by k):
 
-  * wave: ``S = V V^T`` in fp32, then S and the stored table each cast to
-    the compute dtype (int8 to bf16 is exact), one float32 product
-    ``S P^T``, ``x scale``, the mask, the verdict;
+  * wave: ``S = V V^T`` in fp32, each entry summed over the k columns in
+    order with every product and sum rounded on its own, as the kernel
+    forms it (so both round the same S to bf16); then S and the stored
+    table each cast to the compute dtype (int8 to bf16 is exact), one
+    float32 product ``S P^T``, ``x scale``, the mask, the verdict;
   * looped: ``W = cast(P_t) @ cast(V)`` summed in fp32, then
     ``sum(W o V)`` with V in fp32, the mask, the verdict.
 
@@ -73,7 +75,10 @@ def assign_wave_plain(v: torch.Tensor, table: torch.Tensor,
     b, d, _ = v.shape
     t = table.shape[0]
     v = v.to(torch.float32)
-    s = torch.einsum("bdk,bek->bde", v, v).reshape(b, d * d)
+    s = torch.zeros((b, d, d), dtype=torch.float32, device=v.device)
+    for c in range(v.shape[2]):
+        s += v[:, :, c, None] * v[:, None, :, c]
+    s = s.reshape(b, d * d)
     p = table.reshape(t, d * d)
     aff = _cast(s, compute_dtype) @ _cast(p, compute_dtype).T
     if scales is not None:

@@ -12,12 +12,14 @@
 // A = S P^T with S (B, d^2) the flattened wave projectors, a directory
 // stored in f32, bf16 or int8 (per-prototype scales applied in the
 // epilogue), fp32 or bf16 inputs to the product and fp32 sums.
-//   Bound on the H100: 2 B d^2 (k + T) operations (forming S, then the
-//   product) against 4 B d k + s T d^2 + 4 B T bytes (s the stored
+//   Bound on the H100: 2 B d^2 k operations forming S (fp32 inputs and
+//   sums: the 67 TFLOP/s fp32 cores) and 2 B d^2 T in the product (the
+//   989 TFLOP/s bf16 tensor cores under bf16, the fp32 cores under
+//   fp32), against 4 B d k + s T d^2 + 4 B T bytes (s the stored
 //   width).  At the landmark path's shape (B = 1024, T = 128, d = 512,
-//   k = 8) that is 7.30e10 operations, 1.09 ms on the 67 TFLOP/s fp32
-//   CUDA cores (0.074 ms on the bf16 tensor cores) against 0.045 ms of
-//   bytes: the operations bound it.
+//   k = 8) under bf16 that is 0.064 ms for S and 0.069 ms for the
+//   product against 0.045 ms of bytes: the product's operations bound
+//   it.  This version runs both on the fp32 cores: 1.09 ms there.
 //   Design: S never reaches device memory (the reference's wrapper
 //   builds it with an einsum: 1 MiB per arrival at d = 512).  A block
 //   owns up to 8 arrivals (fewer when the wave is short, so that a wave
@@ -175,7 +177,11 @@ struct Verdict {
 };
 
 // s_ij = sum_c v_ic v_jc in fp32, c in order, for rows vi and vj of one
-// arrival's V (k columns, 16-byte aligned rows when k % 4 == 0).
+// arrival's V (k columns, 16-byte aligned rows when k % 4 == 0).  Each
+// product and each sum is rounded on its own (__fmul_rn, __fadd_rn: no
+// contraction to FMA), so the plain version's elementwise torch ops in
+// the same order give the same s_ij bit for bit, and under bf16 the
+// same rounded operand.
 __device__ __forceinline__ float entry(const float* __restrict__ vi,
                                        const float* __restrict__ vj, int k) {
   float s = 0.f;
@@ -186,13 +192,14 @@ __device__ __forceinline__ float entry(const float* __restrict__ vi,
     for (int c = 0; c < k / 4; ++c) {
       const float4 x = __ldg(a + c);
       const float4 y = __ldg(b + c);
-      s = fmaf(x.x, y.x, s);
-      s = fmaf(x.y, y.y, s);
-      s = fmaf(x.z, y.z, s);
-      s = fmaf(x.w, y.w, s);
+      s = __fadd_rn(s, __fmul_rn(x.x, y.x));
+      s = __fadd_rn(s, __fmul_rn(x.y, y.y));
+      s = __fadd_rn(s, __fmul_rn(x.z, y.z));
+      s = __fadd_rn(s, __fmul_rn(x.w, y.w));
     }
   } else {
-    for (int c = 0; c < k; ++c) s = fmaf(__ldg(vi + c), __ldg(vj + c), s);
+    for (int c = 0; c < k; ++c)
+      s = __fadd_rn(s, __fmul_rn(__ldg(vi + c), __ldg(vj + c)));
   }
   return s;
 }

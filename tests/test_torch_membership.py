@@ -229,16 +229,22 @@ class TestConstruction:
         with pytest.raises(ValueError):
             MembershipConfig(**kw)
 
-    def test_verdict_from_affinity_equals_reference(self):
+    def test_verdict_and_floors_equal_reference(self):
+        # The torch backend's verdict (the kernels' argmax and margin, as
+        # their plain ``verdict``) and ``_apply_floors`` against the
+        # reference's verdict-plus-floors rule on the same affinity rows.
         from repro.core.membership_engine import (
             _verdict_from_affinity as ref_verdict)
-        from repro_torch.core.membership_engine import _verdict_from_affinity
+        from repro_torch.core.membership_engine import _apply_floors
+        from repro_torch.kernels.assign.ref import verdict
         rng = np.random.default_rng(6)
         aff = rng.uniform(size=(9, 4)).astype(np.float32)
         aff[1, 2] = aff[1, 0] = aff[1].max() + 1.0      # tie: first wins
         aff[2, :3] = -np.inf                            # one live column
         for cols in (aff, aff[:, :1]):
-            labels, margin = _verdict_from_affinity(t(cols), 0.2, 0.05)
+            raw, margin = verdict(t(cols))
+            labels = _apply_floors(raw, t(cols).max(dim=1).values, margin,
+                                   0.2, 0.05)
             r_labels, r_margin = ref_verdict(jnp.asarray(cols), 0.2, 0.05)
             np.testing.assert_array_equal(host(labels), np.asarray(r_labels))
             np.testing.assert_array_equal(host(margin), np.asarray(r_margin))
