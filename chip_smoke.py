@@ -21,7 +21,17 @@ Algorithm 2) at full width:
        scored against 128 landmark projectors by the assign wave kernel;
   [3e] membership serving: ``launch.membership.run_cell`` seeds a
        directory from 1024 users, then serves six waves of 128 arrivals
-       with churn and task drift, re-clustering when drift trips.
+       with churn and task drift, re-clustering when drift trips;
+  [3f] cluster-routed LM serving: ``ServeEngine`` on RWKV-6 1.6B at full
+       width and depth (bf16, the wkv kernel on every prefill chunk), 16
+       requests from 4 token tasks routed by ``route_requests`` over a
+       ``MembershipEngine``; then, at full width and 2 layers in fp32,
+       its tokens against per-request ``greedy_decode``;
+  [3g] dense prefill: Qwen3-1.7B at full width and depth (bf16, the flash
+       kernel), ``forward(last_only=True)`` on 2 x 4096 tokens;
+  [3h] hybrid prefill: RecurrentGemma-9B at full width and depth (bf16,
+       the flash kernel with its 2048 window and the linear scan), on
+       1 x 4096 tokens.
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -31,12 +41,14 @@ last line is
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
 preceded by a JSON line of what each path measured (walls, peak memory,
-the serving cell's per-wave numbers, each phase's seconds), the card's
+the serving cell's per-wave numbers, the LM phases' tokens/s, time to
+first token and logit gaps, each phase's seconds), the card's
 name and power limit, and a ``{"kernels": [...]}`` line.  Without a CUDA device, or outside the repository, it exits
 non-zero and prints no result.  It imports nothing of JAX.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import subprocess
@@ -63,6 +75,19 @@ SERVING_ARGS = ["--seed-users", "1024", "--samples", "256", "--dim", "512",
 # fraction after each wave, and the waves that re-clustered.
 REF_SERVING_UNASSIGNED = {3: 0.044, 4: 0.081, 5: 0.039}
 REF_SERVING_RECLUSTER_WAVES = [4]
+
+# LM serving cell (phase 3f): ServeEngine shapes, and the token tasks the
+# requests come from.  Prompts of 64-256 tokens carry too few windows
+# for the token-signature router at the reference tests' settings
+# (vocab 64, window 16); sharper tasks (logit scale 8) over 512 tokens
+# with 8-token windows route every request on a CPU trial.
+LM_SERVE = dict(slots=8, wave=4, prefill_chunk=64, max_prompt=256,
+                max_gen=32, max_len=288)
+LM_REQUESTS, LM_TASKS, LM_SEED_STREAMS = 16, 4, 8
+TOKEN_TASK = dict(vocab=512, logit_scale=8.0)
+SIG = dict(d=32, k=2, window=8, vocab=512)
+# Prefill cells (phases 3g, 3h): batch x sequence.
+DENSE_PREFILL, HYBRID_PREFILL = (2, 4096), (1, 4096)
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -121,6 +146,50 @@ def assign_bound_ms(ops_fp32: float, ops_product: float, compute_dtype: str,
     if t_ops >= t_bytes:
         return t_ops, "operations", t_fp32
     return t_bytes, "bytes", t_fp32
+
+
+def flash_bound_ms(bh: int, hd: int, pairs: int, nbytes: float
+                   ) -> tuple[float, str]:
+    """Bound of flash attention over ``pairs`` visible (query, key) pairs
+    per head: q.k at the bf16 tensor-core rate (the reference's operands)
+    beside p.v at the fp32 rate (the reference computes it in fp32), the
+    larger of the two, against Q, K, V and O moved once."""
+    ops = 2.0 * bh * hd * pairs
+    t_ops = max(ops / PEAK_BF16_FLOPS, ops / PEAK_FP32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def visible_pairs(s: int, window: int) -> int:
+    """(query, key) pairs a causal mask (with a window, if set) leaves."""
+    if not window:
+        return s * (s + 1) // 2
+    w = min(window, s)
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def token_requests(np, sample_tokens, TokenTaskSpec):
+    """The LM serving cell's traffic: seed streams per task (for the
+    membership directory) and 16 requests, task ``i % 4``, prompts of
+    64-256 tokens, 8-32 generated, half arriving at round 0 and half
+    staggered over rounds 1-7.  Returns (seed streams, their tasks,
+    prompts, gens, arrival rounds, request tasks)."""
+    specs = [TokenTaskSpec(seed=t, **TOKEN_TASK) for t in range(LM_TASKS)]
+    seeds, seed_tasks = [], []
+    for t, spec in enumerate(specs):
+        for j in range(LM_SEED_STREAMS):
+            seeds.append(sample_tokens(spec, 600, seed=(1, t, j)))
+            seed_tasks.append(t)
+    rng = np.random.default_rng(SEED)
+    prompts, gens, arrive, tasks = [], [], [], []
+    for i in range(LM_REQUESTS):
+        t = i % LM_TASKS
+        prompts.append(sample_tokens(specs[t], int(rng.integers(64, 257)),
+                                     seed=(2, i)))
+        gens.append(int(rng.integers(8, 33)))
+        arrive.append(0 if i < LM_REQUESTS // 2 else int(rng.integers(1, 8)))
+        tasks.append(t)
+    return seeds, seed_tasks, prompts, gens, arrive, tasks
 
 
 def time_ms(torch, fn, reps: int, setup=None) -> float:
@@ -243,7 +312,24 @@ def main() -> int:
                                             assign_wave_plain)
     from repro_torch.launch import membership as launch_membership
     from repro_torch.core.engine import landmark_indices
-    from repro_torch.core.membership_engine import MembershipEngine
+    from repro_torch.core.membership_engine import (MembershipConfig,
+                                                    MembershipEngine)
+    from repro_torch.configs.base import get_arch
+    from repro_torch.data.tokens import TokenTaskSpec, sample_tokens
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_ref)
+    from repro_torch.kernels.recurrent_scan import (linear_scan,
+                                                    linear_scan_ref,
+                                                    wkv_chunked, wkv_ref)
+    from repro_torch.launch.decode_loop import (ClusterHeads, Request,
+                                                ServeConfig, ServeEngine,
+                                                cluster_logits_fn,
+                                                greedy_decode,
+                                                route_requests,
+                                                token_signature)
+    from repro_torch.models import layers as lm_layers
+    from repro_torch.models import transformer as lm_T
+    from repro_torch.models.registry import get_model
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -448,6 +534,88 @@ def main() -> int:
                     f"{fn.__name__} {cd}: T = 1 must give margin = affinity")
     print("  assign edges: ties (label 0, margin 0), all dead (label 0, "
           "NaN margin), one live (+inf margin), T = 1 (margin = affinity)")
+
+    def rel_check(name, out, ref, tol) -> float:
+        """``max|out - ref| <= tol * max|ref|``, finite; returns the
+        relative error."""
+        require(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+        err = max_err(torch, out, ref) / max(float(ref.abs().max()), 1e-30)
+        require(err <= tol, f"{name}: kernel disagrees with plain "
+                f"({err:.3e} > {tol:g})")
+        return err
+
+    # flash_attention: every head dim the models use, S and Skv off the
+    # kernel's 32-row and 64-key tiles, causal, windowed and
+    # bidirectional masks.  fp32 to 1e-5 x max|plain| (another summation
+    # order); on bf16 inputs the bf16 output to one bf16 ulp of the
+    # largest output (2^-8) of the fp32 function of the same inputs.
+    lm_errs = {"flash fp32": 0.0, "flash bf16": 0.0, "wkv fp32": 0.0,
+               "wkv bf16": 0.0}
+    n_checks = 0
+    for hd in (16, 64, 128, 256):
+        for b_, s_, skv_, h_ in [(2, 100, 100, 3), (1, 257, 257, 2),
+                                 (1, 70, 130, 2)]:
+            qkv32 = (randn(b_, s_, h_, hd), randn(b_, skv_, h_, hd),
+                     randn(b_, skv_, h_, hd))
+            for dt, tol, key in ((torch.float32, 1e-5, "flash fp32"),
+                                 (torch.bfloat16, 2 ** -8, "flash bf16")):
+                q_, k_, v_ = (t_.to(dt) for t_ in qkv32)
+                for causal, window in [(True, 0), (True, 48), (False, 0),
+                                       (False, 33)]:
+                    out = flash_attention(q_, k_, v_, causal=causal,
+                                          window=window)
+                    want = flash_ref(q_.float(), k_.float(), v_.float(),
+                                     causal, window)
+                    require(out.dtype == dt, "flash: output dtype")
+                    lm_errs[key] = max(lm_errs[key], rel_check(
+                        f"flash hd={hd} ({b_}, {s_}, {skv_}, {h_}) {dt} "
+                        f"causal={causal} window={window}", out.float(),
+                        want, tol))
+                    n_checks += 1
+    print(f"  flash_attention: {n_checks} cases (hd 16/64/128/256, S and "
+          f"Skv off the tiles, causal / window / bidirectional): max|kernel"
+          f" - plain| / max|plain| fp32 {lm_errs['flash fp32']:.3e} "
+          f"(tolerance 1e-5), bf16 {lm_errs['flash bf16']:.3e} (tolerance "
+          f"2^-8 against the fp32 function)")
+    # wkv_chunked: S of 1, under one 64-token chunk, and several chunks;
+    # hd 32 and 64; fp32 and bf16 r, k, v.  Output as flash; the state
+    # uses the plain version's separately rounded operations: equal.
+    n_checks = 0
+    for hd in (32, 64):
+        for b_, s_, h_ in [(1, 1, 2), (2, 37, 3), (4, 64, 32), (2, 200, 2)]:
+            for dt, tol, key in ((torch.float32, 1e-5, "wkv fp32"),
+                                 (torch.bfloat16, 2 ** -8, "wkv bf16")):
+                r_, k_, v_ = (randn(b_, s_, h_, hd).to(dt) for _ in range(3))
+                logw_ = -torch.exp(randn(b_, s_, h_, hd))
+                u_, st_ = randn(h_, hd), randn(b_, h_, hd, hd)
+                out, new_st = wkv_chunked(r_, k_, v_, logw_, u_, st_)
+                want, want_st = wkv_ref(r_, k_, v_, logw_, u_, st_)
+                require(out.dtype == dt and new_st.dtype == torch.float32,
+                        "wkv: output dtypes")
+                lm_errs[key] = max(lm_errs[key], rel_check(
+                    f"wkv ({b_}, {s_}, {h_}, {hd}) {dt}", out.float(), want,
+                    tol))
+                require(torch.equal(new_st, want_st),
+                        f"wkv ({b_}, {s_}, {h_}, {hd}) {dt}: state differs "
+                        f"from plain")
+                n_checks += 1
+    print(f"  wkv_chunked: {n_checks} cases (S 1/37/64/200, hd 32/64): out "
+          f"fp32 {lm_errs['wkv fp32']:.3e} (tolerance 1e-5), bf16 "
+          f"{lm_errs['wkv bf16']:.3e} (tolerance 2^-8), final state equal "
+          f"to plain (exact)")
+    # linear_scan: D off the 32-channel warp, S = 1 and long S; the plain
+    # version's separately rounded multiply and add: equal.
+    for b_, s_, d_ in [(1, 1, 100), (2, 77, 1000), (1, 4096, 4097)]:
+        la_ = -torch.exp(randn(b_, s_, d_) - 1)
+        x_, h0_ = randn(b_, s_, d_), randn(b_, d_)
+        got_h, got_last = linear_scan(la_, x_, h0_)
+        want_h, want_last = linear_scan_ref(la_, x_, h0_)
+        require(torch.equal(got_h, want_h) and torch.equal(got_last,
+                                                           want_last),
+                f"linear_scan ({b_}, {s_}, {d_}) differs from plain")
+    print("  linear_scan: (1, 1, 100), (2, 77, 1000), (1, 4096, 4097) equal "
+          "to plain (exact)")
+    summary["phase2_lm_rel_err"] = lm_errs
     phase_done("phase 2")
 
     # -- Phase 3: the main path at full width -----------------------------
@@ -814,6 +982,217 @@ def main() -> int:
     serve_protos = st.protos
     phase_done("phase 3e")
 
+    # -- Phase 3f: cluster-routed LM serving at full width ------------------
+    cfg_f = dataclasses.replace(get_arch("rwkv6_1_6b"), rec_impl="pallas")
+    print(f"[3f] LM serving: ServeEngine {LM_SERVE} on {cfg_f.name} CONFIG "
+          f"({cfg_f.n_layers} layers, d={cfg_f.d_model}, vocab "
+          f"{cfg_f.vocab}, {cfg_f.param_dtype}, rec_impl=pallas), "
+          f"{LM_REQUESTS} requests from {LM_TASKS} token tasks, T="
+          f"{LM_TASKS} cluster heads")
+    seeds, seed_tasks, prompts, gens, arrive, req_tasks = token_requests(
+        np, sample_tokens, TokenTaskSpec)
+    sigs = [token_signature(t_, **SIG) for t_ in seeds]
+    router = MembershipEngine(MembershipConfig(), device=dev)
+    router.seed(np.stack([g_[0] for g_ in sigs]),
+                np.stack([g_[1] for g_ in sigs]), np.asarray(seed_tasks),
+                n_clusters=LM_TASKS)
+    cids = route_requests(router, prompts, **SIG)
+    print(f"  routing: {LM_TASKS * LM_SEED_STREAMS} seed streams -> "
+          f"directory; request clusters {cids.tolist()} (tasks "
+          f"{req_tasks})")
+    require(cids.tolist() == req_tasks, "routing did not recover the tasks")
+    reqs = [Request(tokens=p_, gen=g_, cluster=int(c_), arrive_round=a_)
+            for p_, g_, c_, a_ in zip(prompts, gens, cids, arrive)]
+    scfg_f = ServeConfig(**LM_SERVE)
+    t0 = time.perf_counter()
+    model_f = get_model(cfg_f)
+    params_f = model_f.init(SEED, device=dev)
+    heads_f = ClusterHeads.init(SEED + 1, params_f.head, n_clusters=LM_TASKS)
+    torch.cuda.synchronize()
+    print(f"  random weights on the card in {time.perf_counter() - t0:.1f} s")
+    engine_f = ServeEngine(model_f, params_f, heads_f, scfg_f)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    stats_f = engine_f.serve(reqs)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    launches_f = dict(dispatch.LAUNCHES)
+    _, mem_text = memory_line(torch, live)
+    n_chunks = scfg_f.max_prompt // scfg_f.prefill_chunk
+    print(f"  launches: {launches_f}")
+    print(f"  wall {wall_f:.3f} s, {stats_f.total_tokens} tokens, "
+          f"{stats_f.aggregate_tok_per_s:.1f} tok/s aggregate, mean TTFT "
+          f"{stats_f.mean_ttft_s * 1e3:.1f} ms, {stats_f.decode_rounds} "
+          f"decode rounds, {stats_f.prefill_dispatches} prefill and "
+          f"{stats_f.decode_dispatches} decode dispatches, slot utilization "
+          f"{stats_f.slot_utilization:.3f}, {mem_text}")
+    record("lm_serving", wall_f, live, launches=launches_f,
+           total_tokens=stats_f.total_tokens,
+           tok_per_s=stats_f.aggregate_tok_per_s,
+           mean_ttft_s=stats_f.mean_ttft_s,
+           decode_rounds=stats_f.decode_rounds,
+           prefill_dispatches=stats_f.prefill_dispatches,
+           decode_dispatches=stats_f.decode_dispatches,
+           slot_utilization=stats_f.slot_utilization)
+    # A second, traced run of the first wave's requests: the device's busy
+    # time (kernel durations summed) against the traced wall, and the
+    # kernel launches the host issued.  The untraced run above gives the
+    # end-to-end numbers; tracing slows the host.  Only device activity
+    # is traced (CPU operator events would cost minutes to sum).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine_f.serve(reqs[:scfg_f.wave])
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    busy_s = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in events if e.device_type == DeviceType.CUDA) / 1e6
+    host_launches = sum(e.count for e in events
+                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
+                                     "cuLaunchKernelEx",
+                                     "cudaLaunchKernelExC"))
+    print(f"  traced run: wall {traced_wall:.3f} s, device busy "
+          f"{busy_s:.3f} s ({busy_s / traced_wall:.1%}; idle "
+          f"{1 - busy_s / traced_wall:.1%}), {host_launches} kernel "
+          f"launches from the host")
+    summary["paths"]["lm_serving"].update(
+        traced_wall_s=traced_wall, device_busy_s=busy_s,
+        host_launches=host_launches)
+    for r_, res in zip(reqs, stats_f.results):
+        require(len(res.tokens) == r_.gen
+                and bool(((res.tokens >= 0)
+                          & (res.tokens < cfg_f.vocab)).all()),
+                "a request did not get its gen tokens in the vocabulary")
+    require(launches_f["wkv_chunked"] == stats_f.prefill_dispatches
+            * n_chunks * cfg_f.n_layers,
+            f"wkv_chunked launched {launches_f['wkv_chunked']} times, not "
+            f"waves x chunks x layers = {stats_f.prefill_dispatches} x "
+            f"{n_chunks} x {cfg_f.n_layers}")
+    del engine_f, params_f, heads_f, model_f
+    torch.cuda.empty_cache()
+    # Depth cut for the reference's bar: full width, 2 layers, fp32; the
+    # engine's tokens equal per-request greedy decode through the same
+    # cluster heads.
+    cfg_c = dataclasses.replace(cfg_f, n_layers=2, param_dtype="float32",
+                                act_dtype="float32")
+    model_c = get_model(cfg_c)
+    params_c = model_c.init(SEED, device=dev)
+    heads_c = ClusterHeads.init(SEED + 1, params_c.head, n_clusters=LM_TASKS)
+    dispatch.reset_launches()
+    stats_c = ServeEngine(model_c, params_c, heads_c, scfg_f).serve(reqs)
+    require(dispatch.LAUNCHES["wkv_chunked"] == stats_c.prefill_dispatches
+            * n_chunks * 2, "2-layer engine: wkv launches")
+    t0 = time.perf_counter()
+    for i, r_ in enumerate(reqs):
+        base = greedy_decode(model_c, params_c,
+                             torch.from_numpy(r_.tokens)[None].to(dev), r_.gen,
+                             logits_fn=cluster_logits_fn(heads_c, r_.cluster))
+        require(np.array_equal(base.tokens[0].cpu().numpy(),
+                               stats_c.results[i].tokens),
+                f"request {i}: engine tokens differ from greedy_decode")
+    print(f"  depth cut (2 layers, fp32, full width): engine tokens equal "
+          f"per-request greedy_decode for all {len(reqs)} requests "
+          f"(greedy baseline {time.perf_counter() - t0:.1f} s)")
+    summary["paths"]["lm_serving"]["greedy_identical_2_layers_fp32"] = True
+    del params_c, heads_c, model_c
+    torch.cuda.empty_cache()
+    phase_done("phase 3f")
+
+    # -- Phases 3g and 3h: prefill forwards at full width -----------------
+    def prefill_cell(path, arch, batch_seq, kernel_kw, plain_kw, expect):
+        """``forward(last_only=True)`` through the kernels, then the same
+        weights through the plain paths in bf16 and in fp32 (each layer's
+        weights upcast as the fp32 forward reaches it, so no fp32 copy of
+        the model is held).  The kernel path's gap to the fp32 logits may
+        be at most twice the bf16 plain path's."""
+        cfg = dataclasses.replace(get_arch(arch), **kernel_kw)
+        b_, s_ = batch_seq
+        print(f"  {cfg.name} CONFIG: {cfg.n_layers} layers, d="
+              f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}, "
+              f"{kernel_kw}; forward(last_only=True) on {b_} x {s_} tokens")
+        t0 = time.perf_counter()
+        model = get_model(cfg)
+        params = model.init(SEED, device=dev)
+        n_par = sum(p_.numel() for p_ in params.parameters())
+        torch.cuda.synchronize()
+        print(f"  {n_par / 1e9:.2f} B random parameters "
+              f"({n_par * params.embed.element_size() / 2**30:.1f} GiB) on "
+              f"the card in {time.perf_counter() - t0:.1f} s")
+        toks = torch.randint(0, cfg.vocab, (b_, s_), generator=gen).to(dev)
+        batch = {"tokens": toks}
+        model.forward(params, {"tokens": toks[:, :64]}, last_only=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live = torch.cuda.memory_allocated()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        logits_k = model.forward(params, batch, last_only=True)[0]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(dispatch.LAUNCHES)
+        _, mem_text = memory_line(torch, live)
+        record(path, wall, live, launches=launches, tok_per_s=b_ * s_ / wall,
+               n_params=n_par)
+        print(f"  launches: {launches}")
+        print(f"  wall {wall:.3f} s ({b_ * s_ / wall:.0f} tokens/s), "
+              f"{mem_text}")
+        for name, n in expect.items():
+            require(launches[name] == n, f"{path}: {name} launched "
+                    f"{launches[name]} times, not {n}")
+        require(tuple(logits_k.shape) == (b_, 1, cfg.vocab)
+                and bool(torch.isfinite(logits_k).all()),
+                f"{path}: logits are not finite (B, 1, vocab)")
+        plain_model = get_model(dataclasses.replace(cfg, **plain_kw))
+        t0 = time.perf_counter()
+        logits_p = plain_model.forward(params, batch, last_only=True)[0]
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+        cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                    act_dtype="float32", **plain_kw)
+        h = lm_T.embed(cfg32, params, toks)
+        positions = torch.arange(s_, device=dev)[None].expand(b_, s_)
+        for block in params.layers:
+            block32 = copy.deepcopy(block).float()
+            h = lm_T.block_apply(cfg32, block.kind, block32, h, positions)
+            del block32
+        h = lm_layers.rms_norm(h[:, -1:], params.final_norm.float())
+        logits_32 = h @ params.head.float()
+        scale = float(logits_32.abs().max())
+        gap_k = max_err(torch, logits_k.float(), logits_32) / scale
+        gap_p = max_err(torch, logits_p.float(), logits_32) / scale
+        print(f"  last-position logits against the fp32 plain forward: "
+              f"kernel path {gap_k:.4e}, bf16 plain path ({plain_kw}, "
+              f"{wall_p:.3f} s) {gap_p:.4e} of max|logit| {scale:.3e}; the "
+              f"kernel path's may be at most 2x the plain path's")
+        require(gap_k <= 2 * gap_p, f"{path}: kernel path {gap_k:.3e} > 2 x "
+                f"plain {gap_p:.3e} from the fp32 logits")
+        summary["paths"][path].update(plain_wall_s=wall_p, gap_kernel=gap_k,
+                                      gap_plain_bf16=gap_p)
+        del params, model, logits_k, logits_p, logits_32, h
+        torch.cuda.empty_cache()
+        return launches
+
+    print("[3g] dense prefill: the flash kernel on every attention layer")
+    launches_g = prefill_cell(
+        "prefill_dense", "qwen3_1_7b", DENSE_PREFILL, {"attn_impl": "pallas"},
+        {"attn_impl": "jnp"}, {"flash_attention": 28})
+    phase_done("phase 3g")
+    print("[3h] hybrid prefill: the linear scan on every rec layer, the "
+          "flash kernel (window 2048) on every attention layer")
+    launches_h = prefill_cell(
+        "prefill_hybrid", "recurrentgemma_9b", HYBRID_PREFILL,
+        {"attn_impl": "pallas", "rec_impl": "pallas"},
+        {"attn_impl": "jnp", "rec_impl": "scan"},
+        {"flash_attention": 12, "linear_scan": 26})
+    phase_done("phase 3h")
+
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "
           "shapes (CUDA events)")
@@ -1018,6 +1397,119 @@ def main() -> int:
         library_ms=time_ms(torch, lambda: library_assign(serve_v, serve_f32,
                                                          "bf16"), 10),
         shape=[b_, d_, k_, t_]))
+
+    # flash_attention at the two prefill cells' shapes (bf16, as the
+    # models run): Qwen3 (B=2, S=4096, H=16, hd=128, causal) and, nested,
+    # RecurrentGemma (B=1, S=4096, H=16, hd=256, window 2048).  Library
+    # call: scaled_dot_product_attention on the (B, H, S, hd) views, with
+    # the window as a boolean mask.
+    import torch.nn.functional as F
+
+    def flash_entry(b_, s_, h_, hd_, window, reps):
+        q_, k_, v_ = (randn(b_, s_, h_, hd_).to(torch.bfloat16)
+                      for _ in range(3))
+        out = flash_attention(q_, k_, v_, causal=True, window=window)
+        want = flash_ref(q_.float(), k_.float(), v_.float(), True, window)
+        rel = rel_check(f"flash ({b_}, {s_}, {h_}, {hd_}) window {window}",
+                        out.float(), want, 2 ** -8)
+        abs_err = max_err(torch, out.float(), want)
+        del want
+        qt, kt, vt = (t_.transpose(1, 2) for t_ in (q_, k_, v_))
+        if window:
+            mask = torch.ones((s_, s_), dtype=torch.bool, device=dev).tril()
+            mask &= ~torch.ones_like(mask).tril(-window)
+
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=True)
+        require(max_err(torch, library().transpose(1, 2).float(),
+                        out.float()) <= 2 ** -6 * float(out.abs().max()),
+                "flash: the library call computes another function")
+        b, by = flash_bound_ms(b_ * h_, hd_, visible_pairs(s_, window),
+                               2.0 * 4 * b_ * s_ * h_ * hd_)
+        return dict(
+            max_abs_err=abs_err, rel_err=rel,
+            ms=time_ms(torch, lambda: flash_attention(
+                q_, k_, v_, causal=True, window=window), reps),
+            plain_ms=time_ms(torch, lambda: flash_ref(q_, k_, v_, True,
+                                                      window), 2),
+            bound_ms=b, bound_by=by,
+            library_ms=time_ms(torch, library, reps),
+            shape=[b_, s_, h_, hd_], window=window)
+
+    dense = flash_entry(*DENSE_PREFILL, 16, 128, 0, 5)
+    hybrid = flash_entry(*HYBRID_PREFILL, 16, 256, 2048, 5)
+    kernels.append(dict(
+        name="flash_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention/flash.py:73",
+        launches=launches_g["flash_attention"]
+        + launches_h["flash_attention"],
+        launches_by_path={"prefill_dense": launches_g["flash_attention"],
+                          "prefill_hybrid": launches_h["flash_attention"]},
+        **dense, hybrid=hybrid))
+
+    # wkv_chunked at the serving prefill's shape: one chunk of a wave
+    # (B=4, S=64, H=32, hd=64), bf16 r, k, v, fp32 decay logs and state.
+    # Bound: about 4 hd^2 fp32 operations per token and head, or the
+    # bytes, whichever is larger.  No library call computes it.
+    wb, ws, wh, whd = scfg_f.wave, scfg_f.prefill_chunk, \
+        cfg_f.d_model // cfg_f.rwkv_head_dim, cfg_f.rwkv_head_dim
+    wr, wk, wv = (randn(wb, ws, wh, whd).to(torch.bfloat16)
+                  for _ in range(3))
+    wlogw = -torch.exp(randn(wb, ws, wh, whd))
+    wu, wst = randn(wh, whd), randn(wb, wh, whd, whd)
+    out, new_st = wkv_chunked(wr, wk, wv, wlogw, wu, wst)
+    want, want_st = wkv_ref(wr, wk, wv, wlogw, wu, wst)
+    wkv_rel = rel_check(f"wkv ({wb}, {ws}, {wh}, {whd}) bf16", out.float(),
+                        want, 2 ** -8)
+    require(torch.equal(new_st, want_st), "wkv: state differs from plain")
+    n_tok = wb * ws * wh
+    b, by = bound_ms(4.0 * whd * whd * n_tok,
+                     n_tok * whd * (3 * 2 + 4 + 2) + 4.0 * wh * whd
+                     + 2 * 4.0 * wb * wh * whd * whd)
+    kernels.append(dict(
+        name="wkv_chunked", route="cuda",
+        source="src/repro_torch/kernels/csrc/recurrent_scan.cu",
+        replaces="src/repro/kernels/recurrent_scan/recurrent_scan.py:97",
+        launches=launches_f["wkv_chunked"],
+        max_abs_err=max_err(torch, out.float(), want), rel_err=wkv_rel,
+        ms=time_ms(torch, lambda: wkv_chunked(wr, wk, wv, wlogw, wu, wst),
+                   20),
+        plain_ms=time_ms(torch, lambda: wkv_ref(wr, wk, wv, wlogw, wu, wst),
+                         3),
+        bound_ms=b, bound_by=by, library_ms=None,
+        shape=[wb, ws, wh, whd]))
+
+    # linear_scan at the hybrid prefill's shape (B=1, S=4096, D=4096).
+    lb, (ls, ld) = HYBRID_PREFILL[0], (HYBRID_PREFILL[1], 4096)
+    la_ = -torch.exp(randn(lb, ls, ld) - 1)
+    x_, h0_ = randn(lb, ls, ld), randn(lb, ld)
+    got_h, got_last = linear_scan(la_, x_, h0_)
+    want_h, want_last = linear_scan_ref(la_, x_, h0_)
+    require(torch.equal(got_h, want_h) and torch.equal(got_last, want_last),
+            "linear_scan at the prefill shape differs from plain")
+    print(f"  linear_scan ({lb}, {ls}, {ld}): equal to plain (exact)")
+    b, by = bound_ms(2.0 * lb * ls * ld,
+                     4.0 * (3 * lb * ls * ld + 2 * lb * ld))
+    kernels.append(dict(
+        name="linear_scan", route="cuda",
+        source="src/repro_torch/kernels/csrc/recurrent_scan.cu",
+        replaces="src/repro/kernels/recurrent_scan/recurrent_scan.py:166",
+        launches=launches_h["linear_scan"], max_abs_err=0.0,
+        ms=time_ms(torch, lambda: linear_scan(la_, x_, h0_), 10),
+        plain_ms=time_ms(torch, lambda: linear_scan_ref(la_, x_, h0_), 2),
+        bound_ms=b, bound_by=by, library_ms=None, shape=[lb, ls, ld]))
+    e = hybrid
+    print(f"  flash_attention hybrid shape {e['shape']} window "
+          f"{e['window']}: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, "
+          f"library {e['library_ms']:.3f}, bound {e['bound_ms']:.4f} by "
+          f"{e['bound_by']}), max_abs_err {e['max_abs_err']:.3e}")
+
     for dt, e in serving.items():
         print(f"  assign_wave serving shape ({b_}, {t_}, {d_}, {k_}) {dt} "
               f"table: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "

@@ -8,6 +8,11 @@ and its arrays through ``numpy.asarray`` (no import of the JAX
 package), so a test can run the port's stages on the reference's own
 parameters and signatures, free of ``eigh``'s sign and
 degenerate-subspace choices.
+
+The LM model zoo does have weights; ``lm_params_from_reference`` walks
+the reference's nested parameter dict into the port's ``LM`` and
+``cluster_heads_from_reference`` carries the per-cluster serving heads,
+so a test runs both packages on the same random weights.
 """
 from __future__ import annotations
 
@@ -20,12 +25,15 @@ from repro_torch.core.signature_engine import SignatureConfig
 from repro_torch.core.similarity import SimilarityConfig
 from repro_torch.data.features import FeatureConfig
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.decode_loop import ClusterHeads
+from repro_torch.models import transformer
 
 __all__ = ["similarity_config_from_reference",
            "cluster_config_from_reference", "signatures_from_reference",
            "feature_config_from_reference",
            "signature_config_from_reference", "phi_params_from_reference",
-           "membership_config_from_reference"]
+           "membership_config_from_reference", "lm_params_from_reference",
+           "cluster_heads_from_reference"]
 
 
 def similarity_config_from_reference(cfg) -> SimilarityConfig:
@@ -106,3 +114,55 @@ def membership_config_from_reference(cfg) -> MembershipConfig:
         trim_frac=cfg.trim_frac, mom_groups=cfg.mom_groups,
         drift_stat=cfg.drift_stat, linkage=cfg.linkage,
         compute_dtype=compute, directory_dtype=cfg.directory_dtype)
+
+
+def _lm_tensor(a, device) -> torch.Tensor:
+    """One reference array -> a tensor of the same dtype on ``device``
+    (bf16 goes through float32, which holds it exactly)."""
+    arr = np.asarray(a)
+    return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+        device=device, dtype=getattr(torch, arr.dtype.name))
+
+
+def lm_params_from_reference(cfg, params: dict,
+                             device: str | torch.device = "cuda"
+                             ) -> transformer.LM:
+    """The reference's decoder parameter tree -> the port's ``LM`` on
+    ``device``.  Takes both of the reference's layouts: stacked
+    ``groups`` (``scan_layers=True``, each leaf with a leading
+    layer-group axis) and the list ``groups_unrolled``; then the
+    remainder layers of ``rest``."""
+    dev = resolve_device(device)
+
+    def walk(tree, pick=None):
+        return {key: walk(val, pick) if isinstance(val, dict)
+                else _lm_tensor(val if pick is None else np.asarray(val)[pick],
+                                dev)
+                for key, val in tree.items()}
+
+    pattern = cfg.block_pattern
+    blocks = []
+    if "groups" in params:
+        for g in range(cfg.n_groups):
+            blocks += [walk(params["groups"][str(j)], g)
+                       for j in range(len(pattern))]
+    else:
+        for group in params.get("groups_unrolled", []):
+            blocks += [walk(group[str(j)]) for j in range(len(pattern))]
+    blocks += [walk(params["rest"][str(j)])
+               for j in range(len(cfg.rest_kinds))]
+    top = walk({key: params[key] for key in ("embed", "final_norm", "head")})
+    return transformer.from_trees(cfg, top, blocks)
+
+
+def cluster_heads_from_reference(heads, device: str | torch.device = "cuda"
+                                 ) -> ClusterHeads:
+    """A reference ``ClusterHeads`` -> the port's, fp32 on ``device``."""
+    dev = resolve_device(device)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a, dtype=np.float32)).to(dev)
+
+    return ClusterHeads(head=tensor(heads.head),
+                        adapter_a=tensor(heads.adapter_a),
+                        adapter_b=tensor(heads.adapter_b))

@@ -48,6 +48,10 @@ _SIGNATURES = {
     "repro_assign_one": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P),
     "repro_assign_one_smem": (_I, _I),
+    "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
+                              _I, _P),
+    "repro_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_error_string": (_I,),
 }
 _RESTYPES = {"repro_nn_chain_smem": ctypes.c_int64,

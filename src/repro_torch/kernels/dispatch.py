@@ -18,7 +18,8 @@ __all__ = ["LAUNCHES", "resolve_device", "device_kind", "on_cuda",
 LAUNCHES: dict[str, int] = {"gram": 0, "eigproject": 0, "linkage": 0,
                             "linkage_step": 0, "featurize_gram": 0,
                             "gram_project": 0, "assign_wave": 0,
-                            "assign_one": 0}
+                            "assign_one": 0, "flash_attention": 0,
+                            "wkv_chunked": 0, "linear_scan": 0}
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:

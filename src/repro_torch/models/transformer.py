@@ -1,0 +1,358 @@
+"""Decoder-only transformer stack, PyTorch port of
+``src/repro/models/transformer.py``: dense (GQA), SSM (RWKV-6) and hybrid
+(RG-LRU + local attention) layer patterns.
+
+The parameters live in an ``LM`` module: ``embed``, ``final_norm``,
+``head`` and ``layers``, a ``ModuleList`` of one ``Block`` per layer in
+the reference's order (its pattern groups, then its remainder layers).
+Each ``Block`` mirrors the reference's nested parameter dict key for key
+(``block.attn.wq``, ``block.time.mu``, ...), so that
+``convert.lm_params_from_reference`` is a walk over the reference's
+keys.  The reference scans its stacked pattern groups; here the layers
+run in a loop.  The functions below take the ``ArchConfig`` and the
+``LM``, as the reference's take the config and the parameter tree:
+
+  init(cfg, generator)                  -> LM
+  forward(cfg, model, batch)            -> (logits, aux)
+  loss_fn(cfg, model, batch)            -> scalar
+  init_decode_state(cfg, batch, max_len)-> state
+  decode_step(cfg, model, tokens, state)-> (logits, new state)
+
+A decode state is ``{"length": ..., "layers": [one state per layer]}``;
+``length`` is a Python int (uniform batch) or a per-row ``(B,)`` int32
+tensor (slot serving).  KV caches are updated in place.  Parameters
+carry no gradient: the train path waits for ROADMAP Queue 1 item 15.
+MoE blocks (``n_experts > 0``), early-fusion VLM inputs
+(``fuse_patches``) and encoder-decoder models wait for item 14.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+from repro_torch.models import rglru as G
+from repro_torch.models import rwkv6 as R
+
+__all__ = ["LM", "Block", "init", "from_trees", "forward", "loss_fn",
+           "init_decode_state", "decode_step", "decode_hidden",
+           "prefill_chunk", "block_apply", "embed", "layer_kinds",
+           "attn_config", "rwkv_config", "rglru_config", "check_supported"]
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def _dt(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for the parts of the reference's zoo the port lacks."""
+    if cfg.encoder_layers > 0:
+        raise NotImplementedError("encoder-decoder models are not ported yet "
+                                  "(ROADMAP Queue 1 item 14)")
+    if cfg.n_experts > 0:
+        raise NotImplementedError("MoE blocks (n_experts > 0) are not ported "
+                                  "yet (ROADMAP Queue 1 item 14)")
+    if cfg.fuse_patches:
+        raise NotImplementedError("early-fusion VLM inputs (fuse_patches) are "
+                                  "not ported yet (ROADMAP Queue 1 item 14)")
+
+
+def layer_kinds(cfg: ArchConfig) -> tuple[str, ...]:
+    """Block kinds in layer order: the pattern repeated ``n_groups`` times,
+    then the reference's remainder layers (``rest_kinds``)."""
+    return tuple(cfg.block_pattern) * cfg.n_groups + tuple(cfg.rest_kinds)
+
+
+# ---------------------------------------------------------------------------
+# Per-kind block configs
+# ---------------------------------------------------------------------------
+
+def attn_config(cfg: ArchConfig, hybrid_local: bool = False) -> A.AttnConfig:
+    window = cfg.local_window if hybrid_local else cfg.attn_window
+    return A.AttnConfig(d_model=cfg.d_model, n_heads=cfg.n_heads,
+                        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                        qk_norm=cfg.qk_norm, window=window,
+                        rope_theta=cfg.rope_theta, impl=cfg.attn_impl)
+
+
+def rwkv_config(cfg: ArchConfig) -> R.RWKVConfig:
+    return R.RWKVConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                        head_dim=cfg.rwkv_head_dim, chunk=cfg.rwkv_chunk,
+                        impl=cfg.rec_impl or "chunked")
+
+
+def rglru_config(cfg: ArchConfig) -> G.RGLRUConfig:
+    impl = "pallas" if cfg.rec_impl == "pallas" else "scan"
+    return G.RGLRUConfig(d_model=cfg.d_model, d_rnn=cfg.d_rnn, impl=impl)
+
+
+def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
+    return attn_config(cfg, hybrid_local=len(cfg.block_pattern) > 1)
+
+
+# ---------------------------------------------------------------------------
+# Parameter modules
+# ---------------------------------------------------------------------------
+
+class Params(nn.Module):
+    """A node of the parameter tree: tensors become parameters and dicts
+    child nodes, under the reference's keys."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, Params(value))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(value, requires_grad=False))
+
+
+class Block(Params):
+    """One layer's parameters, with its kind (``attn``, ``rec``, ``rwkv``)."""
+
+    def __init__(self, kind: str, tree: dict):
+        super().__init__(tree)
+        self.kind = kind
+
+
+class LM(nn.Module):
+    """The decoder's parameters: embedding, layers, final norm and head."""
+
+    def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
+                 head: torch.Tensor, blocks: list[Block]):
+        super().__init__()
+        self.embed = nn.Parameter(embed, requires_grad=False)
+        self.final_norm = nn.Parameter(final_norm, requires_grad=False)
+        self.head = nn.Parameter(head, requires_grad=False)
+        self.layers = nn.ModuleList(blocks)
+
+
+def _block_init(cfg: ArchConfig, kind: str, gen, dtype) -> dict:
+    dev = gen.device
+    if kind == "attn":
+        return {"ln1": L.rms_norm_init(cfg.d_model, dtype, dev),
+                "attn": A.attn_init(gen, _attn_cfg(cfg), dtype),
+                "ln2": L.rms_norm_init(cfg.d_model, dtype, dev),
+                "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                  cfg.mlp_variant, dtype)}
+    if kind == "rec":
+        return {"ln1": L.rms_norm_init(cfg.d_model, dtype, dev),
+                "rec": G.rglru_block_init(gen, rglru_config(cfg), dtype),
+                "ln2": L.rms_norm_init(cfg.d_model, dtype, dev),
+                "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff,
+                                  cfg.mlp_variant, dtype)}
+    if kind == "rwkv":
+        return R.rwkv_block_init(gen, rwkv_config(cfg), dtype)
+    raise ValueError(f"unknown block kind {kind!r}")
+
+
+def from_trees(cfg: ArchConfig, top: dict, blocks: list[dict]) -> LM:
+    """An ``LM`` from tensors: ``top`` holds ``embed``, ``final_norm`` and
+    ``head``; ``blocks`` one parameter dict per layer, in layer order."""
+    check_supported(cfg)
+    kinds = layer_kinds(cfg)
+    if len(blocks) != len(kinds):
+        raise ValueError(f"{len(blocks)} layer trees for {len(kinds)} layers")
+    return LM(top["embed"], top["final_norm"], top["head"],
+              [Block(kind, tree) for kind, tree in zip(kinds, blocks)])
+
+
+def init(cfg: ArchConfig, generator: torch.Generator | int = 0,
+         device: str | torch.device = "cuda") -> LM:
+    """Random parameters, drawn on the device from ``generator`` (a seed
+    makes one there).  The draws differ from the reference's ``jax.random``
+    ones; the distributions are the reference's."""
+    check_supported(cfg)
+    if isinstance(generator, int):
+        dev = resolve_device(device)
+        generator = torch.Generator(device=dev).manual_seed(generator)
+    dtype = _dt(cfg.param_dtype)
+    top = {"embed": L.embed_init(generator, cfg.vocab, cfg.d_model, dtype),
+           "final_norm": L.rms_norm_init(cfg.d_model, dtype,
+                                         generator.device),
+           "head": L.dense_init(generator, cfg.d_model, cfg.vocab, dtype)}
+    blocks = [_block_init(cfg, kind, generator, dtype)
+              for kind in layer_kinds(cfg)]
+    return from_trees(cfg, top, blocks)
+
+
+# ---------------------------------------------------------------------------
+# Blocks: train / prefill, decode step, chunked prefill
+# ---------------------------------------------------------------------------
+
+def _ffn(cfg: ArchConfig, block, h):
+    return h + L.mlp_apply(block.ffn, L.rms_norm(h, block.ln2),
+                           cfg.mlp_variant)
+
+
+def block_apply(cfg: ArchConfig, kind: str, block, h: torch.Tensor,
+                positions: torch.Tensor) -> torch.Tensor:
+    """Training / prefill block (fresh recurrent state)."""
+    if kind == "attn":
+        h = h + A.attention(block.attn, _attn_cfg(cfg),
+                            L.rms_norm(h, block.ln1), positions)
+        return _ffn(cfg, block, h)
+    if kind == "rec":
+        r, _ = G.rglru_block_apply(block.rec, rglru_config(cfg),
+                                   L.rms_norm(h, block.ln1))
+        return _ffn(cfg, block, h + r)
+    if kind == "rwkv":
+        return R.rwkv_block_apply(block, rwkv_config(cfg), h)[0]
+    raise ValueError(kind)
+
+
+def _block_state_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
+                      dtype, device) -> dict:
+    if kind == "attn":
+        return A.init_cache(_attn_cfg(cfg), batch, max_len, dtype, device)
+    if kind == "rec":
+        return G.init_rglru_state(rglru_config(cfg), batch, dtype, device)
+    if kind == "rwkv":
+        st = R.init_rwkv_state(rwkv_config(cfg), batch, device=device)
+        # token-shift carries live in the activation dtype; wkv stays fp32
+        st["shift_att"] = st["shift_att"].to(dtype)
+        st["shift_ffn"] = st["shift_ffn"].to(dtype)
+        return st
+    raise ValueError(kind)
+
+
+def _block_step(cfg: ArchConfig, kind: str, block, h, state, length):
+    """Single-token decode block."""
+    if kind == "attn":
+        a, cache = A.decode_step(block.attn, _attn_cfg(cfg),
+                                 L.rms_norm(h, block.ln1), state, length)
+        return _ffn(cfg, block, h + a), cache
+    if kind == "rec":
+        r, st = G.rglru_block_step(block.rec, rglru_config(cfg),
+                                   L.rms_norm(h, block.ln1), state)
+        return _ffn(cfg, block, h + r), st
+    if kind == "rwkv":
+        return R.rwkv_block_step(block, rwkv_config(cfg), h, state)
+    raise ValueError(kind)
+
+
+def _block_chunk(cfg: ArchConfig, kind: str, block, h, state, start, valid):
+    """Chunked teacher-forced prefill block: ``h (B, C, d)`` against live
+    decode state.  ``start`` = absolute position of the chunk's first
+    token; ``valid (B, C)`` masks each row's live positions so recurrent
+    state updates stay exact under right padding (attention needs no
+    mask: pad writes land past a row's true length and are overwritten
+    before they become visible)."""
+    if kind == "attn":
+        a, cache = A.decode_chunk(block.attn, _attn_cfg(cfg),
+                                  L.rms_norm(h, block.ln1), state, start)
+        return _ffn(cfg, block, h + a), cache
+    if kind == "rec":
+        r, st = G.rglru_block_apply(block.rec, rglru_config(cfg),
+                                    L.rms_norm(h, block.ln1), state, valid)
+        return _ffn(cfg, block, h + r), st
+    if kind == "rwkv":
+        return R.rwkv_block_apply(block, rwkv_config(cfg), h, state, valid)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Forward (train / prefill)
+# ---------------------------------------------------------------------------
+
+def embed(cfg: ArchConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings in the activation dtype."""
+    return model.embed[tokens.long()].to(_dt(cfg.act_dtype))
+
+
+def forward(cfg: ArchConfig, model: LM, batch: dict, last_only: bool = False
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``batch["tokens"] (B, S)`` -> (logits, aux).  ``last_only=True``
+    computes logits for the final position only (the serving prefill)."""
+    tokens = batch["tokens"]
+    h = embed(cfg, model, tokens)
+    b, s = tokens.shape
+    positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
+    for block in model.layers:
+        h = block_apply(cfg, block.kind, block, h, positions)
+    if last_only:
+        h = h[:, -1:, :]
+    h = L.rms_norm(h, model.final_norm)
+    return L.mm(h, model.head), torch.zeros((), dtype=torch.float32,
+                                            device=h.device)
+
+
+def loss_fn(cfg: ArchConfig, model: LM, batch: dict, aux_weight: float = 0.01
+            ) -> torch.Tensor:
+    logits, aux = forward(cfg, model, batch)
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
+    mask = batch.get("loss_mask")
+    if mask is not None:
+        loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        loss = nll.mean()
+    return loss + aux_weight * aux
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
+                      per_slot: bool = False,
+                      device: str | torch.device = "cuda") -> dict:
+    """``per_slot=True`` keeps a per-row ``length (batch,)`` so that every
+    row (serving slot) decodes at its own depth; the default Python-int
+    length is the uniform-batch decode path."""
+    dev = resolve_device(device)
+    dtype = _dt(cfg.act_dtype)
+    length = torch.zeros((batch,), dtype=torch.int32, device=dev) \
+        if per_slot else 0
+    return {"length": length,
+            "layers": [_block_state_init(cfg, kind, batch, max_len, dtype,
+                                         dev) for kind in layer_kinds(cfg)]}
+
+
+def decode_hidden(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
+                  state: dict) -> tuple[torch.Tensor, dict]:
+    """One decode step up to the final norm: ``tokens (B, 1)`` ->
+    (normed hidden (B, 1, d), new state).  The head is left to the
+    caller, so that serving can swap per-cluster heads over the shared
+    trunk."""
+    h = embed(cfg, model, tokens)
+    length = state["length"]
+    new_layers = []
+    for block, st in zip(model.layers, state["layers"]):
+        h, st = _block_step(cfg, block.kind, block, h, st, length)
+        new_layers.append(st)
+    return (L.rms_norm(h, model.final_norm),
+            {"length": length + 1, "layers": new_layers})
+
+
+def decode_step(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
+                state: dict) -> tuple[torch.Tensor, dict]:
+    """One decode step: ``tokens (B, 1)`` -> (logits (B, 1, V), state)."""
+    h, state = decode_hidden(cfg, model, tokens, state)
+    return L.mm(h, model.head), state
+
+
+def prefill_chunk(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
+                  state: dict, start: int, valid: torch.Tensor
+                  ) -> tuple[torch.Tensor, dict]:
+    """Teacher-forced prefill of a C-token chunk: ``tokens (B, C)``
+    right-padded, ``start`` = the chunk's absolute base position,
+    ``valid (B, C)`` = per-row liveness.  Returns the pre-norm hidden
+    ``(B, C, d)`` (the caller gathers each row's last valid position and
+    applies the final norm and head once) and the advanced state
+    (``length`` grows by each row's valid count).  Needs a per-slot
+    state."""
+    h = embed(cfg, model, tokens)
+    counts = valid.sum(dim=1, dtype=torch.int32)
+    new_layers = []
+    for block, st in zip(model.layers, state["layers"]):
+        h, st = _block_chunk(cfg, block.kind, block, h, st, start, valid)
+        new_layers.append(st)
+    return h, {"length": state["length"] + counts, "layers": new_layers}

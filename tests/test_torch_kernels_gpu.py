@@ -19,6 +19,15 @@ H100), finite margins to twice that, NaN and inf margins in the same
 places, and equal labels wherever the plain margin exceeds the
 tolerance.  At d = 512 bf16 and fp32 differ by far more than the bf16
 tolerance, so a kernel that ignored the compute dtype fails.
+
+The LM kernels: flash in fp32 agrees with its plain version to 1e-5 of
+the largest output (another summation order; an H100 measured 1.3e-6);
+on bf16 inputs its bf16 output is within one bf16 ulp of the largest
+output (2^-8) of the fp32 function of the same inputs.  The wkv kernel's
+output agrees to 1e-5 in fp32 (an fp32 dot in another order) and to
+2^-8 when it is rounded to bf16; its state and the linear scan use the
+plain versions' separately rounded IEEE operations and equal them bit
+for bit.
 """
 import numpy as np
 import pytest
@@ -40,7 +49,10 @@ from repro_torch.kernels.featurize_gram import (batched_featurize_gram,
                                                 featurize_gram_ref)
 from repro_torch.kernels.gram_project import (batched_gram_project,
                                               gram_project_ref)
+from repro_torch.kernels.flash_attention import flash_attention, flash_ref
 from repro_torch.kernels.gram import batched_gram_matrix, gram_ref
+from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_ref,
+                                                wkv_chunked, wkv_ref)
 from repro_torch.kernels.linkage import (LINKAGES, linkage_step,
                                          linkage_step_ref, nn_chain,
                                          nn_chain_ref)
@@ -278,3 +290,89 @@ class TestKernelsOnCard:
             e.admit(lam, v, out.labels)
         np.testing.assert_allclose(host(engines[0].state.protos),
                                    host(engines[1].state.protos), atol=1e-5)
+
+
+@pytest.mark.gpu
+class TestLMKernelsOnCard:
+    """flash_attention, wkv_chunked and linear_scan against their plain
+    versions on the card."""
+
+    @pytest.mark.parametrize("hd", [16, 64, 128, 256])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_flash(self, cuda_device, hd, dtype):
+        torch.manual_seed(hd)
+        for b, s, skv, h in [(2, 100, 100, 3), (1, 257, 257, 2),
+                             (1, 70, 130, 2)]:
+            q = torch.randn((b, s, h, hd), device=cuda_device).to(dtype)
+            k = torch.randn((b, skv, h, hd), device=cuda_device).to(dtype)
+            v = torch.randn((b, skv, h, hd), device=cuda_device).to(dtype)
+            for causal, window in [(True, 0), (True, 48), (False, 0),
+                                   (False, 33)]:
+                before = dispatch.LAUNCHES["flash_attention"]
+                out = flash_attention(q, k, v, causal=causal, window=window)
+                assert dispatch.LAUNCHES["flash_attention"] == before + 1
+                assert out.dtype == dtype and out.shape == q.shape
+                want = flash_ref(q.float(), k.float(), v.float(), causal,
+                                 window)
+                close(out.float(), want,
+                      1e-5 if dtype == torch.float32 else 2 ** -8)
+
+    def test_flash_rejects_other_head_dims(self, cuda_device):
+        q = torch.zeros((1, 8, 2, 48), device=cuda_device)
+        with pytest.raises(ValueError, match="head dims"):
+            flash_attention(q, q, q)
+
+    @pytest.mark.parametrize("hd", [32, 64])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    def test_wkv(self, cuda_device, hd, dtype):
+        torch.manual_seed(hd)
+        for b, s, h in [(1, 1, 2), (2, 7, 3), (4, 64, 32), (2, 130, 2)]:
+            r, k, v = (torch.randn((b, s, h, hd), device=cuda_device
+                                   ).to(dtype) for _ in range(3))
+            logw = -torch.exp(torch.randn((b, s, h, hd), device=cuda_device))
+            u = torch.randn((h, hd), device=cuda_device)
+            st = torch.randn((b, h, hd, hd), device=cuda_device)
+            before = dispatch.LAUNCHES["wkv_chunked"]
+            out, new_st = wkv_chunked(r, k, v, logw, u, st)
+            assert dispatch.LAUNCHES["wkv_chunked"] == before + 1
+            assert out.dtype == dtype and new_st.dtype == torch.float32
+            want, want_st = wkv_ref(r, k, v, logw, u, st)
+            close(out.float(), want,
+                  1e-5 if dtype == torch.float32 else 2 ** -8)
+            assert torch.equal(new_st, want_st)
+
+    def test_linear_scan(self, cuda_device):
+        torch.manual_seed(0)
+        for b, s, d in [(1, 1, 100), (2, 77, 1000), (1, 2048, 4096)]:
+            log_a = -torch.exp(torch.randn((b, s, d), device=cuda_device) - 1)
+            x = torch.randn((b, s, d), device=cuda_device)
+            h0 = torch.randn((b, d), device=cuda_device)
+            before = dispatch.LAUNCHES["linear_scan"]
+            h, h_last = linear_scan(log_a, x, h0)
+            assert dispatch.LAUNCHES["linear_scan"] == before + 1
+            want, want_last = linear_scan_ref(log_a, x, h0)
+            assert torch.equal(h, want) and torch.equal(h_last, want_last)
+
+    @pytest.mark.parametrize("arch", ["qwen3_1_7b", "rwkv6_1_6b",
+                                      "recurrentgemma_9b"])
+    def test_reduced_forward_matches_cpu(self, cuda_device, arch):
+        """A REDUCED config's forward through the kernels on the card
+        against the plain versions on the CPU, same weights."""
+        import dataclasses
+
+        from repro_torch.configs.base import get_arch
+        from repro_torch.models.registry import get_model
+
+        cfg = dataclasses.replace(get_arch(arch, reduced=True),
+                                  attn_impl="pallas", rec_impl="pallas")
+        m = get_model(cfg)
+        params = m.init(0, device="cpu")
+        toks = torch.randint(0, cfg.vocab, (2, 80),
+                             generator=torch.Generator().manual_seed(0))
+        want, _ = m.forward(params, {"tokens": toks})
+        dispatch.reset_launches()
+        got, _ = m.forward(params.to(cuda_device),
+                           {"tokens": toks.to(cuda_device)})
+        assert sum(dispatch.LAUNCHES[k] for k in (
+            "flash_attention", "wkv_chunked", "linear_scan")) == 2
+        close(got.cpu(), want, 1e-4)
