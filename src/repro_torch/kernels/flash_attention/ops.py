@@ -23,6 +23,14 @@ from repro_torch.kernels.flash_attention.ref import flash_ref
 HEAD_DIMS = (16, 64, 128, 256)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address, as the kernel's
+    16-byte loads need: a view whose storage offset breaks the alignment
+    is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """``q (B, S, H, hd)``, ``k/v (B, Skv, H, hd)`` -> ``(B, S, H, hd)``."""
@@ -46,7 +54,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         f"{v.dtype}")
     if b * h > 65535:
         raise ValueError(f"batch x heads {b * h} exceeds the grid's 65535")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = (_aligned(t) for t in (q, k, v))
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out

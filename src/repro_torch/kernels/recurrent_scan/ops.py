@@ -35,7 +35,8 @@ def wkv_chunked(r, k, v, logw, u, state, *, compute_dtype: str = "bf16"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6 WKV: ``r/k/v/logw (B, S, H, hd)``, ``u (H, hd)``,
     ``state (B, H, hd, hd)`` -> ``(out (B, S, H, hd) in r.dtype, final
-    state (B, H, hd, hd) f32)``."""
+    state (B, H, hd, hd) f32)``.  ``compute_dtype`` is validated and has
+    no effect yet: the kernel and its plain version compute in fp32."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                          f"got {compute_dtype!r}")
