@@ -35,8 +35,12 @@ Algorithm 2) at full width:
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
-version, one library call and its bound.  Every phase must pass; the
-last line is
+version, one library call and its bound.  bf16 attention and bf16
+assignment run on the tensor cores (``flash_attention_tc.cu``,
+``assign_wave_tc.cu``); phases [2] and [4] also hold the flash kernel
+with its output left in fp32 to 1e-5 of the fp32 function, and phase
+[1] prints every kernel's registers and spills.  Every phase must pass;
+the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -142,7 +146,7 @@ def assign_bound_ms(ops_fp32: float, ops_product: float, compute_dtype: str,
     ``ops_product`` run at the compute dtype's rate (bf16 tensor cores
     under bf16).  The two units run side by side, so the larger counts.
     Returns ``(bound_ms, bound_by, bound_fp32_ms)``, the last with every
-    operation on the fp32 cores, as this first version runs them."""
+    operation on the fp32 cores, as the fp32 kernels run them."""
     peak = PEAK_BF16_FLOPS if compute_dtype == "bf16" else PEAK_FP32_FLOPS
     t_ops = max(ops_fp32 / PEAK_FP32_FLOPS, ops_product / peak) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -153,15 +157,52 @@ def assign_bound_ms(ops_fp32: float, ops_product: float, compute_dtype: str,
 
 
 def flash_bound_ms(bh: int, hd: int, pairs: int, nbytes: float
-                   ) -> tuple[float, str]:
+                   ) -> tuple[float, str, float]:
     """Bound of flash attention over ``pairs`` visible (query, key) pairs
-    per head: q.k at the bf16 tensor-core rate (the reference's operands)
-    beside p.v at the fp32 rate (the reference computes it in fp32), the
-    larger of the two, against Q, K, V and O moved once."""
+    per head, as the tensor-core kernel computes it: q.k once and p.v
+    twice (p's bf16 hi and lo parts), all at the bf16 tensor-core rate,
+    against Q, K, V and O moved once.  Returns ``(bound_ms, bound_by,
+    bound_fp32_pv_ms)``, the last with p.v at the fp32 rate, as the
+    CUDA-core kernel (and the reference) compute it."""
     ops = 2.0 * bh * hd * pairs
-    t_ops = max(ops / PEAK_BF16_FLOPS, ops / PEAK_FP32_FLOPS) * 1e3
+    t_ops = 3 * ops / PEAK_BF16_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    t_fp32_pv = max(ops / PEAK_FP32_FLOPS * 1e3, t_bytes)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", t_fp32_pv
+    return t_bytes, "bytes", t_fp32_pv
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Registers and spills of each kernel from ``nvcc -Xptxas -v``'s
+    output in ``build.log``: ``[{file, function, registers,
+    spill_stores, spill_loads}]``, function names demangled where
+    ``c++filt`` is on the path."""
+    import re
+    import shutil
+
+    rows, source, fn, spills = [], None, None, (0, 0)
+    for line in log.splitlines():
+        if line.startswith("== "):
+            source = line.split()[1]
+        elif m := re.search(r"Compiling entry function '([^']+)'", line):
+            fn = m.group(1)
+        elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                            r"loads", line):
+            spills = (int(m.group(1)), int(m.group(2)))
+        elif (m := re.search(r"Used (\d+) registers", line)) and fn:
+            rows.append(dict(file=source, function=fn,
+                             registers=int(m.group(1)),
+                             spill_stores=spills[0], spill_loads=spills[1]))
+            fn, spills = None, (0, 0)
+    if rows and shutil.which("c++filt"):
+        names = subprocess.run(
+            ["c++filt"], input="\n".join(r["function"] for r in rows),
+            capture_output=True, text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(rows):
+            for r, name in zip(rows, names):
+                r["function"] = name
+    return rows
 
 
 def visible_pairs(s: int, window: int) -> int:
@@ -323,6 +364,8 @@ def main() -> int:
     from repro_torch.data.tokens import TokenTaskSpec, sample_tokens
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_ref)
+    from repro_torch.kernels.flash_attention.ops import (
+        _flash_attention_fp32_out)
     from repro_torch.kernels.recurrent_scan import (linear_scan,
                                                     linear_scan_ref,
                                                     wkv_chunked, wkv_ref)
@@ -373,9 +416,11 @@ def main() -> int:
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     log = build.BUILD_DIR / "build.log"
     if log.is_file():
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("    ptxas:", line.strip())
+        summary["ptxas"] = ptxas_report(log.read_text())
+        for r in summary["ptxas"]:
+            print(f"    ptxas {r['file']}: {r['registers']} registers, "
+                  f"spill stores {r['spill_stores']} B, loads "
+                  f"{r['spill_loads']} B: {r['function'][:110]}")
     phase_done("phase 1")
 
     # -- Phase 2: each kernel against its plain version -------------------
@@ -457,9 +502,10 @@ def main() -> int:
                     gram_project_ref(x, v, counts.float()), 1e-5)
 
     # assign_wave and assign_one: every directory dtype, both compute
-    # dtypes, B = 1 and B not a multiple of the arrival tile (B = 200 and
-    # 300 take the 2- and 4-arrival blocks on a 132-SM card, the others
-    # 1 or 8), T = 1 and T = 130, d in (100, 512), k in (3, 8), dead
+    # dtypes, B = 1 and B not a multiple of the arrival tile (under fp32,
+    # B = 200 and 300 take the 2- and 4-arrival blocks on a 132-SM card,
+    # the others 1 or 8; under bf16 every B is off the 64-arrival tile),
+    # T = 1 and T = 130, d in (100, 512), k in (3, 8), dead
     # prototypes.  fp32 is
     # held to the reference's 1e-4 x max|plain| (a d = 512 affinity sums
     # 262,144 terms); bf16 to ASSIGN_BF16_TOL x max|plain|: both sides
@@ -567,11 +613,17 @@ def main() -> int:
         return used
 
     # flash_attention: every head dim the models use, S and Skv off the
-    # kernel's 32-row and 64-key tiles, causal, windowed (inside one key
-    # tile and across several) and bidirectional masks; fp32 and bf16
-    # inputs, each held to ``flash_check``.
-    lm_errs = {"flash fp32": 0.0, "flash bf16": 0.0, "wkv fp32": 0.0,
-               "wkv bf16": 0.0}
+    # kernels' 32- and 64-row and 32- and 64-key tiles, causal, windowed
+    # (inside one key tile and across several) and bidirectional masks;
+    # fp32 and bf16 inputs, each held to ``flash_check``.  bf16 inputs
+    # also go through the tensor-core kernel with its output left in fp32,
+    # against the fp32 function of the same values to 1e-5 x max|plain|
+    # (the bf16 output's rounding would hide an error in p.v); and, as a
+    # negative control, the plain version with p rounded to bf16 once
+    # must miss that function by more than 10x the same limit.
+    lm_errs = {"flash fp32": 0.0, "flash bf16": 0.0,
+               "flash bf16 fp32-out": 0.0, "flash p-once control": None,
+               "wkv fp32": 0.0, "wkv bf16": 0.0}
     n_checks = 0
     for hd in (16, 64, 128, 256):
         for b_, s_, skv_, h_ in [(2, 100, 100, 3), (1, 257, 257, 2),
@@ -589,11 +641,30 @@ def main() -> int:
                     want = flash_ref(q_.float(), k_.float(), v_.float(),
                                      causal, window)
                     require(out.dtype == dt, "flash: output dtype")
+                    name = (f"flash hd={hd} ({b_}, {s_}, {skv_}, {h_}) {dt} "
+                            f"causal={causal} window={window}")
                     lm_errs[key] = max(lm_errs[key], flash_check(
-                        f"flash hd={hd} ({b_}, {s_}, {skv_}, {h_}) {dt} "
-                        f"causal={causal} window={window}", out.float()
-                        if dt == torch.float32 else out, want))
+                        name, out.float() if dt == torch.float32 else out,
+                        want))
                     n_checks += 1
+                    if dt != torch.bfloat16:
+                        continue
+                    lm_errs["flash bf16 fp32-out"] = max(
+                        lm_errs["flash bf16 fp32-out"], rel_check(
+                            f"{name} fp32 out", _flash_attention_fp32_out(
+                                q_, k_, v_, causal, window), want, 1e-5))
+                    if causal and not window:
+                        once = flash_ref(q_.float(), k_.float(), v_.float(),
+                                         causal, window, p_rounding="bf16")
+                        gap = max_err(torch, once, want) / float(
+                            want.abs().max())
+                        require(gap > 10 * 1e-5,
+                                f"{name}: p rounded to bf16 once is within "
+                                f"10x the fp32-out limit ({gap:.3e}): the "
+                                f"check cannot see a bf16 p.v")
+                        ctl = lm_errs["flash p-once control"]
+                        lm_errs["flash p-once control"] = gap if ctl is None \
+                            else min(ctl, gap)
     # A view whose storage offset leaves it off the kernel's 16-byte loads
     # is copied, not read misaligned.
     base = randn(1 * 70 * 2 * 64 + 1)
@@ -608,7 +679,11 @@ def main() -> int:
           f"a misaligned view): fp32 max|kernel - plain| / max|plain| "
           f"{lm_errs['flash fp32']:.3e} (tolerance 1e-5); bf16 element by "
           f"element within 2^-8 |plain| + 1e-5 max|plain| of the fp32 "
-          f"function, at most {lm_errs['flash bf16']:.3f} of that limit")
+          f"function, at most {lm_errs['flash bf16']:.3f} of that limit; "
+          f"the tensor-core kernel with fp32 output "
+          f"{lm_errs['flash bf16 fp32-out']:.3e} (tolerance 1e-5), p "
+          f"rounded to bf16 once at least "
+          f"{lm_errs['flash p-once control']:.3e} (must exceed 1e-4)")
     # wkv_chunked: S of 1, under one 64-token chunk, and several chunks;
     # hd 32 and 64; fp32 and bf16 r, k, v.  Output as flash; the state
     # uses the plain version's separately rounded operations: equal.
@@ -1368,7 +1443,7 @@ def main() -> int:
     # cuBLAS, S = einsum("bdk,bek->bde") then S @ P_flat^T in the compute
     # dtype.  Bounds (assign_bound_ms): each operation at the peak of its
     # type, the bf16 products on the tensor cores; bound_fp32_ms beside it
-    # has every operation on the fp32 cores, as this first version runs.
+    # has every operation on the fp32 cores.
 
     def library_assign(v, p, cd):
         b_, d_, _ = v.shape
@@ -1400,6 +1475,13 @@ def main() -> int:
                                reps))
 
     wave = assign_entry("assign_wave", land_v, land_protos, None, "bf16", 3)
+    # The bf16 wave kernel adds its per-slice partial sums in a fixed
+    # order: two runs on the same inputs give the same bits.
+    runs = [assign(land_v, land_protos, None, "bf16") for _ in range(2)]
+    require(all(torch.equal(x, y) for x, y in zip(*runs)),
+            "assign_wave: two runs on the same inputs differ")
+    del runs
+    print("  assign_wave landmark shape: two runs bit-equal")
     serve_v = torch.as_tensor(v_last).to(dev).contiguous()
     serve_f32 = quant.dequantize_directory(serve_protos)
     serving = {}
@@ -1409,7 +1491,7 @@ def main() -> int:
                                    "bf16", 10)
     kernels.append(dict(
         name="assign_wave", route="cuda",
-        source="src/repro_torch/kernels/csrc/assign.cu",
+        source="src/repro_torch/kernels/csrc/assign_wave_tc.cu",
         replaces="src/repro/kernels/assign/assign.py:85",
         launches=launches_l["assign_wave"] + launches_s["assign_wave"],
         launches_by_path={"landmarks": launches_l["assign_wave"],
@@ -1464,6 +1546,9 @@ def main() -> int:
         used = flash_check(f"{name} bf16", out, want)
         rel = max_err(torch, out.float(), want) / float(want.abs().max())
         abs_err = max_err(torch, out.float(), want)
+        rel_out32 = rel_check(f"{name} bf16 fp32 out",
+                              _flash_attention_fp32_out(
+                                  q_, k_, v_, True, window), want, 1e-5)
         del want
         qt, kt, vt = (t_.transpose(1, 2) for t_ in (q_, k_, v_))
         if window:
@@ -1480,11 +1565,13 @@ def main() -> int:
         require(max_err(torch, library().transpose(1, 2).float(),
                         out.float()) <= 2 ** -6 * float(out.abs().max()),
                 "flash: the library call computes another function")
-        b, by = flash_bound_ms(b_ * h_, hd_, visible_pairs(s_, window),
-                               2.0 * 4 * b_ * s_ * h_ * hd_)
+        b, by, b_pv32 = flash_bound_ms(b_ * h_, hd_,
+                                       visible_pairs(s_, window),
+                                       2.0 * 4 * b_ * s_ * h_ * hd_)
         return dict(
             max_abs_err=abs_err, rel_err=rel, bf16_limit_used=used,
-            fp32_rel_err=rel32,
+            fp32_rel_err=rel32, fp32_out_rel_err=rel_out32,
+            bound_fp32_pv_ms=b_pv32,
             ms=time_ms(torch, lambda: flash_attention(
                 q_, k_, v_, causal=True, window=window), reps),
             plain_ms=time_ms(torch, lambda: flash_ref(q_, k_, v_, True,
@@ -1497,7 +1584,7 @@ def main() -> int:
     hybrid = flash_entry(*HYBRID_PREFILL, 16, 256, 2048, 5)
     kernels.append(dict(
         name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention/flash.py:73",
         launches=launches_g["flash_attention"]
         + launches_h["flash_attention"],
@@ -1560,10 +1647,18 @@ def main() -> int:
         print(f"  flash_attention shape {e['shape']} window {e['window']}: "
               f"{e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
               f"{e['library_ms']:.3f}, bound {e['bound_ms']:.4f} by "
-              f"{e['bound_by']}); fp32 inputs rel_err {e['fp32_rel_err']:.3e}"
+              f"{e['bound_by']}, {e['bound_fp32_pv_ms']:.4f} with p.v at the "
+              f"fp32 rate); fp32 inputs rel_err {e['fp32_rel_err']:.3e}"
               f" (tolerance 1e-5); bf16 max_abs_err {e['max_abs_err']:.3e}, "
-              f"{e['bf16_limit_used']:.3f} of the element-wise limit")
+              f"{e['bf16_limit_used']:.3f} of the element-wise limit, with "
+              f"fp32 output rel_err {e['fp32_out_rel_err']:.3e} (tolerance "
+              f"1e-5)")
 
+    print(f"  assign_wave landmark shape {list(land_v.shape)} x "
+          f"{land_protos.shape[0]}: {wave['ms']:.3f} ms (plain "
+          f"{wave['plain_ms']:.3f}, library {wave['library_ms']:.3f}, bound "
+          f"{wave['bound_ms']:.4f} by {wave['bound_by']}, "
+          f"{wave['bound_fp32_ms']:.4f} all on the fp32 cores)")
     for dt, e in serving.items():
         print(f"  assign_wave serving shape ({b_}, {t_}, {d_}, {k_}) {dt} "
               f"table: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "

@@ -44,12 +44,16 @@ _SIGNATURES = {
     "repro_gram_project": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_gram_project_slab": (_I,),
     "repro_assign_wave": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _P),
+                          _P),
+    "repro_assign_wave_tc": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _I, _I, _P),
     "repro_assign_one": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P),
     "repro_assign_one_smem": (_I, _I),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
-                              _I, _P),
+                              _P),
+    "repro_flash_attention_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                                 _I, _I, _P),
     "repro_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_error_string": (_I,),

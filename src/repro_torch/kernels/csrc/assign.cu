@@ -7,49 +7,39 @@
 //   margin[b] = best - second best  (best alone when T == 1)
 // The caller divides aff and margin by k.  Two kernels:
 //
-// assign_wave replaces src/repro/kernels/assign/assign.py::
-// assign_wave_pallas (pallas_call at :117), the one-matmul form
-// A = S P^T with S (B, d^2) the flattened wave projectors, a directory
-// stored in f32, bf16 or int8 (per-prototype scales applied in the
-// epilogue), fp32 or bf16 inputs to the product and fp32 sums.
-//   Bound on the H100: 2 B d^2 k operations forming S (fp32 inputs and
-//   sums: the 67 TFLOP/s fp32 cores) and 2 B d^2 T in the product (the
-//   989 TFLOP/s bf16 tensor cores under bf16, the fp32 cores under
-//   fp32), against 4 B d k + s T d^2 + 4 B T bytes (s the stored
-//   width).  At the landmark path's shape (B = 1024, T = 128, d = 512,
-//   k = 8) under bf16 that is 0.064 ms for S and 0.069 ms for the
-//   product against 0.045 ms of bytes: the product's operations bound
-//   it.  This version runs both on the fp32 cores: 1.09 ms there.
-//   Design: S never reaches device memory (the reference's wrapper
-//   builds it with an einsum: 1 MiB per arrival at d = 512).  A block
-//   owns up to 8 arrivals (fewer when the wave is short, so that a wave
-//   of 128 still spreads over 128 SMs) and walks the directory in tiles
-//   of prototypes, in order.  For each tile it streams the flattened
-//   d^2 axis in steps of `rows` rows of S times 128 columns.  Each
-//   thread forms s_ij = sum_c v_ic v_jc for some of the block's
-//   (arrival, row) pairs in fp32, rounds it to the compute type
-//   (__float2bfloat16_rn under bf16, as the reference's astype), and
-//   stages it in shared memory: S is the only operand the threads
-//   share, double-buffered so a step costs one barrier.  The directory
-//   is read straight from device memory into registers, each entry by
-//   the one lane that uses it, one step ahead of its use: a warp owns 4
-//   prototypes and one row of the step, a lane 4 consecutive entries of
-//   that row (one 16-byte load per prototype for f32), cast to the
-//   compute type, and a thread keeps an arrivals x 4 block of sums in
-//   registers.  The loads in flight bound this kernel (a block is
-//   latency-bound, not FMA-bound), so a small directory takes more rows
-//   a step (8 when T <= 4) to give every warp live prototypes and its
-//   own loads; from T = 17 on a step is one row and a tile 32
-//   prototypes.  The block is two groups of 256 threads that take
-//   alternate steps (named barriers).  At the end of a tile the lanes'
-//   sums are added by shuffles, and one thread per arrival adds the row
-//   slots, applies scale and liveness and walks the tile's affinities
-//   in prototype order, keeping a running (best, second, argmax) in
-//   registers and moving the argmax only on strict '>', so the first
-//   index wins: any T, no atomics, no second pass.  S is formed again
-//   for every tile.  Plain fp32 FMA for both compute types: no wgmma, no
-//   TMA yet.  Every block reads the whole directory, so at T = 128 its
-//   128 MiB (past the 50 MB L2) is read B / 8 times.
+// assign_wave (fp32 compute; bf16 compute runs on the tensor cores in
+// assign_wave_tc.cu, and the wrapper chooses by compute dtype alone)
+// replaces src/repro/kernels/assign/assign.py::assign_wave_pallas
+// (pallas_call at :117), the one-matmul form A = S P^T with S (B, d^2)
+// the flattened wave projectors, a directory stored in f32, bf16 or int8
+// (per-prototype scales applied in the epilogue), fp32 inputs to the
+// product and fp32 sums.
+//   Bound on the H100: 2 B d^2 (k + T) fp32 operations (67 TFLOP/s)
+//   against 4 B d k + s T d^2 + 4 B T bytes (s the stored width).
+//   Design: S never reaches device memory (the reference's wrapper builds it
+//   with an einsum: 1 MiB per arrival at d = 512).  A block owns up to 8
+//   arrivals (fewer when the wave is short, so that a wave of 128 still
+//   spreads over 128 SMs) and walks the directory in tiles of prototypes, in
+//   order.  For each tile it streams the flattened d^2 axis in steps of `rows`
+//   rows of S times 128 columns.  Each thread forms s_ij = sum_c v_ic v_jc for
+//   some of the block's (arrival, row) pairs in fp32 and stages it in shared
+//   memory: S is the only operand the threads share, double-buffered so a step
+//   costs one barrier.  The directory is read straight from device memory into
+//   registers, each entry by the one lane that uses it, one step ahead of its
+//   use: a warp owns 4 prototypes and one row of the step, a lane 4
+//   consecutive entries of that row (one 16-byte load per prototype for f32),
+//   as fp32, and a thread keeps an arrivals x 4 block of sums in registers.
+//   The loads in flight bound this kernel (a block is latency-bound, not
+//   FMA-bound), so a small directory takes more rows a step (8 when T <= 4) to
+//   give every warp live prototypes and its own loads; from T = 17 on a step
+//   is one row and a tile 32 prototypes.  The block is two groups of 256
+//   threads that take alternate steps (named barriers).  At the end of a tile
+//   the lanes' sums are added by shuffles, and one thread per arrival adds the
+//   row slots, applies scale and liveness and walks the tile's affinities in
+//   prototype order, keeping a running (best, second, argmax) in registers and
+//   moving the argmax only on strict '>', so the first index wins: any T, no
+//   atomics, no second pass.  S is formed again for every tile.  Every block
+//   reads the whole directory.
 //
 // assign_one replaces src/repro/kernels/assign/assign.py::
 // assign_one_pallas (pallas_call at :214), the per-arrival form
@@ -70,6 +60,7 @@
 #include <cuda_bf16.h>
 
 #include "common.cuh"
+#include "verdict.cuh"
 
 namespace {
 
@@ -147,35 +138,6 @@ __device__ __forceinline__ float4 load4(const int8_t* p, int n, bool vec) {
                      n > 2 ? p[2] : 0.f, n > 3 ? p[3] : 0.f);
 }
 
-template <bool BF16>
-__device__ __forceinline__ float4 to_compute4(float4 x) {
-  return make_float4(to_compute<BF16>(x.x), to_compute<BF16>(x.y),
-                     to_compute<BF16>(x.z), to_compute<BF16>(x.w));
-}
-
-// Running verdict over prototypes taken in order: the argmax moves only
-// on strict '>', so the first index wins; dead prototypes (-inf) never
-// move it.
-struct Verdict {
-  float best = -INFINITY;
-  float second = -INFINITY;
-  int arg = 0;
-  __device__ __forceinline__ void take(float a, int t) {
-    if (a > best) {
-      second = best;
-      best = a;
-      arg = t;
-    } else if (a > second) {
-      second = a;
-    }
-  }
-  // T == 1 has no runner-up: the margin is the affinity itself.  All
-  // prototypes dead gives -inf - -inf = NaN, one live among several +inf.
-  __device__ __forceinline__ float margin(int n_protos) const {
-    return n_protos == 1 ? best : best - second;
-  }
-};
-
 // s_ij = sum_c v_ic v_jc in fp32, c in order, for rows vi and vj of one
 // arrival's V (k columns, 16-byte aligned rows when k % 4 == 0).  Each
 // product and each sum is rounded on its own (__fmul_rn, __fadd_rn: no
@@ -205,8 +167,8 @@ __device__ __forceinline__ float entry(const float* __restrict__ vi,
 }
 
 // This lane's four directory entries (columns e .. e + 3 of row i) for
-// the warp's four prototypes pw .. pw + 3, in the compute type.
-template <typename T, bool BF16>
+// the warp's four prototypes pw .. pw + 3, as fp32.
+template <typename T>
 __device__ __forceinline__ void load_slice(const T* __restrict__ table,
                                           int64_t d2, int d, int n_protos,
                                           int pw, int i, int e, int n_e,
@@ -215,12 +177,11 @@ __device__ __forceinline__ void load_slice(const T* __restrict__ table,
   for (int q = 0; q < 4; ++q) {
     pv[q] = make_float4(0.f, 0.f, 0.f, 0.f);
     if (pw + q < n_protos && n_e > 0 && i < d)
-      pv[q] = to_compute4<BF16>(
-          load4(table + (pw + q) * d2 + (int64_t)i * d + e, n_e, vec));
+      pv[q] = load4(table + (pw + q) * d2 + (int64_t)i * d + e, n_e, vec);
   }
 }
 
-template <typename T, bool BF16, int ARR>
+template <typename T, int ARR>
 __global__ void __launch_bounds__(kWaveThreads, 1)
 assign_wave_kernel(const float* __restrict__ v, const T* __restrict__ table,
                    const float* __restrict__ scales,
@@ -270,11 +231,11 @@ assign_wave_kernel(const float* __restrict__ v, const T* __restrict__ table,
       const int i_first = group * rows;
       float4 pv[4];
       if (live_warp)
-        load_slice<T, BF16>(table, d2, d, n_protos, pw, i_first + slot, e,
-                            n_e, vec, pv);
+        load_slice<T>(table, d2, d, n_protos, pw, i_first + slot, e, n_e,
+                      vec, pv);
       for (int i0 = i_first; i0 < d; i0 += step_rows) {
-        // s_ij of this thread's (arrival, row) pairs, then the compute
-        // type, into this step's S buffer.  One barrier a step: a buffer
+        // s_ij of this thread's (arrival, row) pairs into this step's S
+        // buffer.  One barrier a step: a buffer
         // is written again only two steps later, after every thread has
         // passed the next step's barrier and so finished this product.
         float* sb = ss + buf * kMaxSegment;
@@ -295,15 +256,15 @@ assign_wave_kernel(const float* __restrict__ v, const T* __restrict__ table,
 #pragma unroll
           for (int u = 0; u < kGenBatch; ++u)
             if (p4 + 2 * u < ARR * rows)
-              sb[(p4 + 2 * u) * kChunk + col] = to_compute<BF16>(s[u]);
+              sb[(p4 + 2 * u) * kChunk + col] = s[u];
         }
         group_sync(group);
         if (live_warp) {
           // The next step's directory entries are in flight during this
           // step's product.
           float4 pn[4];
-          load_slice<T, BF16>(table, d2, d, n_protos, pw,
-                              i0 + step_rows + slot, e, n_e, vec, pn);
+          load_slice<T>(table, d2, d, n_protos, pw, i0 + step_rows + slot, e,
+                        n_e, vec, pn);
 #pragma unroll
           for (int a = 0; a < ARR; ++a) {
             const float4 sv = *reinterpret_cast<const float4*>(
@@ -464,13 +425,13 @@ int wave_arrivals(int n_arrivals) {
   return arr;
 }
 
-template <typename T, bool BF16, int ARR>
+template <typename T, int ARR>
 int launch_wave_arr(const float* v, const void* table, const float* scales,
                     const float* mask, float* aff, int* labels, float* margin,
                     int n_arrivals, int n_protos, int d, int k,
                     cudaStream_t stream) {
   const int blocks = repro_ceil_div(n_arrivals, ARR);
-  auto kernel = assign_wave_kernel<T, BF16, ARR>;
+  auto kernel = assign_wave_kernel<T, ARR>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWaveSmem);
   if (err != cudaSuccess) return (int)err;
@@ -485,28 +446,24 @@ int launch_wave_arr(const float* v, const void* table, const float* scales,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool BF16>
+template <typename T>
 int launch_wave(const float* v, const void* table, const float* scales,
                 const float* mask, float* aff, int* labels, float* margin,
                 int n_arrivals, int n_protos, int d, int k,
                 cudaStream_t stream) {
   switch (wave_arrivals(n_arrivals)) {
     case 1:
-      return launch_wave_arr<T, BF16, 1>(v, table, scales, mask, aff, labels,
-                                         margin, n_arrivals, n_protos, d, k,
-                                         stream);
+      return launch_wave_arr<T, 1>(v, table, scales, mask, aff, labels,
+                                   margin, n_arrivals, n_protos, d, k, stream);
     case 2:
-      return launch_wave_arr<T, BF16, 2>(v, table, scales, mask, aff, labels,
-                                         margin, n_arrivals, n_protos, d, k,
-                                         stream);
+      return launch_wave_arr<T, 2>(v, table, scales, mask, aff, labels,
+                                   margin, n_arrivals, n_protos, d, k, stream);
     case 4:
-      return launch_wave_arr<T, BF16, 4>(v, table, scales, mask, aff, labels,
-                                         margin, n_arrivals, n_protos, d, k,
-                                         stream);
+      return launch_wave_arr<T, 4>(v, table, scales, mask, aff, labels,
+                                   margin, n_arrivals, n_protos, d, k, stream);
   }
-  return launch_wave_arr<T, BF16, 8>(v, table, scales, mask, aff, labels,
-                                     margin, n_arrivals, n_protos, d, k,
-                                     stream);
+  return launch_wave_arr<T, 8>(v, table, scales, mask, aff, labels, margin,
+                               n_arrivals, n_protos, d, k, stream);
 }
 
 template <typename T, bool BF16>
@@ -524,22 +481,21 @@ int launch_one(const float* v, const void* table, const float* mask,
   return (int)cudaGetLastError();
 }
 
-template <bool BF16>
 int wave_by_table(int table_type, const float* v, const void* table,
                   const float* scales, const float* mask, float* aff,
                   int* labels, float* margin, int n_arrivals, int n_protos,
                   int d, int k, cudaStream_t s) {
   switch (table_type) {
     case kF32:
-      return launch_wave<float, BF16>(v, table, scales, mask, aff, labels,
-                                      margin, n_arrivals, n_protos, d, k, s);
+      return launch_wave<float>(v, table, scales, mask, aff, labels, margin,
+                                n_arrivals, n_protos, d, k, s);
     case kBF16:
-      return launch_wave<__nv_bfloat16, BF16>(v, table, scales, mask, aff,
-                                              labels, margin, n_arrivals,
-                                              n_protos, d, k, s);
+      return launch_wave<__nv_bfloat16>(v, table, scales, mask, aff, labels,
+                                        margin, n_arrivals, n_protos, d, k,
+                                        s);
     case kI8:
-      return launch_wave<int8_t, BF16>(v, table, scales, mask, aff, labels,
-                                       margin, n_arrivals, n_protos, d, k, s);
+      return launch_wave<int8_t>(v, table, scales, mask, aff, labels, margin,
+                                 n_arrivals, n_protos, d, k, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -574,23 +530,19 @@ REPRO_EXPORT int64_t repro_assign_one_smem(int d, int k) {
 
 // v (B, d, k) fp32; table (T, d, d) f32 (table_type 0), bf16 (1) or int8
 // (2); scales (T,) fp32 or null (all 1); mask (T,) fp32 or null (all
-// live), live where > 0.5; bf16 != 0 selects bf16 product inputs.  All
-// contiguous.  Writes the raw aff (B, T) fp32, labels (B,) int32 and
-// margin (B,) fp32.
+// live), live where > 0.5.  All contiguous.  Writes the raw aff (B, T)
+// fp32, labels (B,) int32 and margin (B,) fp32, with fp32 product inputs
+// and sums.
 REPRO_EXPORT int repro_assign_wave(const float* v, const void* table,
                                    int table_type, const float* scales,
                                    const float* mask, float* aff, int* labels,
                                    float* margin, int n_arrivals,
-                                   int n_protos, int d, int k, int bf16,
-                                   void* stream) {
+                                   int n_protos, int d, int k, void* stream) {
   if (n_arrivals <= 0) return 0;
   if (n_protos <= 0 || d <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return wave_by_table<true>(table_type, v, table, scales, mask, aff,
-                               labels, margin, n_arrivals, n_protos, d, k, s);
-  return wave_by_table<false>(table_type, v, table, scales, mask, aff,
-                              labels, margin, n_arrivals, n_protos, d, k, s);
+  return wave_by_table(table_type, v, table, scales, mask, aff, labels,
+                       margin, n_arrivals, n_protos, d, k,
+                       (cudaStream_t)stream);
 }
 
 // The per-arrival form, one block per arrival, no scales; same layouts.

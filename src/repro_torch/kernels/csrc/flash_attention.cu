@@ -1,4 +1,8 @@
-// Flash attention forward: online-softmax attention over (B, S, H, hd).
+// Flash attention forward on the CUDA cores, for fp32 q, k, v over
+// (B, S, H, hd).  bf16 inputs take the tensor-core kernel of
+// flash_attention_tc.cu; the wrapper chooses by dtype alone.  No model
+// runs attention in fp32 on the card: this kernel serves fp32 callers and
+// the card's fp32 checks.
 //
 // Replaces src/repro/kernels/flash_attention/flash.py::flash_pallas
 // (pallas_call at :83), which attention.py reaches with impl="pallas" on
@@ -9,32 +13,27 @@
 // positions counted from 0 on both axes), running row max m, row sum l
 // and an fp32 accumulator; p = exp(s - m_new) (0 where masked),
 // corr = exp(m_old - m_new), l = l corr + sum p, acc = acc corr + p v in
-// fp32; out = acc / max(l, 1e-20) in the input dtype.
+// fp32; out = acc / max(l, 1e-20) in fp32.
 //
 // Bound on the H100: for a causal or windowed prefill the function needs
-// 4 hd operations per visible (query, key) pair against reading Q, K, V
-// and writing O once, hundreds of operations per byte: compute-bound.
-// The reference computes q.k from bf16 operands (a tensor-core rate) and
-// p.v in fp32 (the fp32 rate), so the fp32 half bounds it.
+// 4 hd fp32 operations per visible (query, key) pair (67 TFLOP/s)
+// against reading Q, K, V and writing O once, hundreds of operations per
+// byte: compute-bound.
 //
-// Design (fp32 on the CUDA cores; tensor cores for q.k are for a later
-// PR): one 128-thread block per (32 query rows, batch x head), walking
-// key tiles of 64 (32 at hd = 256, to fit two blocks on an SM).  Tiles
-// that the causal mask or the window empties for every row of the block
-// are skipped (the reference visits them and adds nothing).  K and V
-// tiles are read with 16-byte loads into registers one tile ahead, so
-// the loads overlap the previous tile's arithmetic.  Q^T, K^T, V and the
-// tile's probabilities (key-major) sit in shared memory as fp32.  Each
-// thread owns 4 query rows x 4 (or 2) neighbouring keys of the score
-// tile and 4 rows x hd/16 neighbouring columns of the accumulator, kept
-// in registers, so every shared-memory read is a 16-byte vector feeding
-// 8-16 FMAs; rows of Q^T and K^T are padded by 4 floats, which keeps
-// those reads aligned.  Row statistics are reduced across the 16 lanes
-// of a row group with shuffles.  Ragged S and Skv are masked: keys past
-// Skv score -1e30 and rows past S are not stored, in place of the
-// reference's padding.
-#include <cuda_bf16.h>
-
+// Design (fp32 on the CUDA cores): one 128-thread block per (32 query rows,
+// batch x head), walking key tiles of 64 (32 at hd = 256, to fit two blocks on
+// an SM).  Tiles that the causal mask or the window empties for every row of
+// the block are skipped (the reference visits them and adds nothing).  K and V
+// tiles are read with 16-byte loads into registers one tile ahead, so the
+// loads overlap the previous tile's arithmetic.  Q^T, K^T, V and the tile's
+// probabilities (key-major) sit in shared memory as fp32.  Each thread owns 4
+// query rows x 4 (or 2) neighbouring keys of the score tile and 4 rows x hd/16
+// neighbouring columns of the accumulator, kept in registers, so every
+// shared-memory read is a 16-byte vector feeding 8-16 FMAs; rows of Q^T and
+// K^T are padded by 4 floats, which keeps those reads aligned.  Row statistics
+// are reduced across the 16 lanes of a row group with shuffles.  Ragged S and
+// Skv are masked: keys past Skv score -1e30 and rows past S are not stored, in
+// place of the reference's padding.
 #include "common.cuh"
 
 namespace {
@@ -45,11 +44,8 @@ constexpr int kPad = 4;        // floats of padding on transposed rows
 constexpr float kNeg = -1e30f;
 
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
-}
 
-// 16 bytes of T (4 fp32 or 8 bf16) at a 16-byte aligned global address,
+// 16 bytes of T (4 fp32) at a 16-byte aligned global address,
 // through the read-only cache; zero when `live` is false.
 template <typename T>
 __device__ __forceinline__ uint4 load16(const T* p, bool live) {
@@ -57,20 +53,12 @@ __device__ __forceinline__ uint4 load16(const T* p, bool live) {
               : make_uint4(0u, 0u, 0u, 0u);
 }
 
-// The 4 (fp32) or 8 (bf16) values of a 16-byte vector as floats.
+// The 4 fp32 values of a 16-byte vector.
 __device__ __forceinline__ void unpack(uint4 u, float* f, float) {
   f[0] = __uint_as_float(u.x);
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
-}
-__device__ __forceinline__ void unpack(uint4 u, float* f, __nv_bfloat16) {
-  const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    f[2 * i] = __uint_as_float(w[i] << 16);
-    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
 }
 
 // N consecutive floats from 16-byte (N = 4, 8, 16), 8-byte (N = 2) or
@@ -323,19 +311,14 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 }  // namespace
 
-// q, o (B, S, H, hd); k, v (B, Skv, H, hd); all fp32 (bf16 == 0) or bf16,
-// contiguous.  hd in {16, 64, 128, 256}; B * H <= 65535.
+// q, o (B, S, H, hd); k, v (B, Skv, H, hd); all fp32, contiguous.  hd in
+// {16, 64, 128, 256}; B * H <= 65535.
 REPRO_EXPORT int repro_flash_attention(const void* q, const void* k,
                                        const void* v, void* o, int B, int S,
                                        int Skv, int H, int hd, float scale,
-                                       int causal, int window, int bf16,
-                                       void* stream) {
+                                       int causal, int window, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (B * H > 65535) return (int)cudaErrorInvalidConfiguration;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (bf16)
-    return launch_hd<__nv_bfloat16>(hd, q, k, v, o, B, S, Skv, H, scale,
-                                    causal, window, st);
   return launch_hd<float>(hd, q, k, v, o, B, S, Skv, H, scale, causal,
-                          window, st);
+                          window, (cudaStream_t)stream);
 }

@@ -12,6 +12,12 @@ Tolerances:
     rounding; measured below 3e-7), labels equal.
   * ``assign_looped`` against the reference's ``assign_looped(...,
     interpret=True)``: the same two tolerances.
+  * the tensor-core wave kernel's split of the d^2 axis
+    (``ops.wave_plan``): its slices cover every entry once, and the
+    plain emulation of its per-slice sums, added in the kernel's order, gives
+    ``assign_wave_plain``'s labels, -inf and NaN places, and affinities
+    within 1e-6 x max|aff| (the same bf16 operands, fp32 sums in another
+    order).
 """
 import numpy as np
 import pytest
@@ -26,6 +32,8 @@ from repro.kernels.assign.ref import assign_ref as ref_assign_ref
 from repro_torch.kernels import dispatch, quant
 from repro_torch.kernels.assign import (assign, assign_looped, assign_ref,
                                         assign_wave_plain)
+from repro_torch.kernels.assign import ops as assign_ops
+from repro_torch.kernels.assign.ref import verdict
 
 SWEEP = [(4, 3, 16, 6), (8, 8, 32, 8), (2, 1, 128, 128), (5, 2, 40, 3),
          (3, 130, 12, 3)]
@@ -202,3 +210,98 @@ class TestAssignPlain:
         raw = assign_wave_plain(t(v), t(p), None, None, "fp32")
         aff = assign(t(v), t(p), compute_dtype="fp32")[0]
         np.testing.assert_allclose(host(raw[0]) / 5, host(aff), rtol=1e-6)
+
+
+def split_k_plain(v, table, scales, mask, plan):
+    """The tensor-core wave kernel's arithmetic in plain PyTorch: S formed
+    as the kernel forms it and rounded to bf16, the table cast to bf16,
+    one fp32 product per slice over that slice's entries, the partials
+    added as the kernel adds them (four interleaved runs over whole groups
+    of four slices, the rest into the first run, then the runs pairwise),
+    then scale, liveness and the verdict: RAW ``(aff, labels, margin)``."""
+    b, d, _ = v.shape
+    s = torch.zeros((b, d, d))
+    for c in range(v.shape[2]):
+        s += v[:, :, c, None] * v[:, None, :, c]
+    s = s.reshape(b, d * d).to(torch.bfloat16).float()
+    p = table.float().reshape(table.shape[0], d * d).to(
+        torch.bfloat16).float()
+    runs = [torch.zeros((b, table.shape[0])) for _ in range(4)]
+    whole = plan.n_slices // 4 * 4
+    for sl in range(plan.n_slices):
+        idx = assign_ops.slice_entries(plan, d, sl)
+        u = sl % 4 if sl < whole else 0
+        runs[u] = runs[u] + s[:, idx] @ p[:, idx].T
+    aff = (runs[0] + runs[1]) + (runs[2] + runs[3])
+    if scales is not None:
+        aff = aff * scales[None, :]
+    if mask is not None:
+        aff = torch.where(mask[None, :] > 0.5, aff, float("-inf"))
+    labels, margin = verdict(aff)
+    return aff, labels, margin
+
+
+class TestTensorCoreWave:
+    """What the CPU can hold of the tensor-core wave kernel: its routing,
+    its split plan and its order of summation."""
+
+    def test_wave_entry_by_compute_dtype(self):
+        assert assign_ops.wave_entry("bf16") == "repro_assign_wave_tc"
+        assert assign_ops.wave_entry("fp32") == "repro_assign_wave"
+        with pytest.raises(ValueError, match="compute_dtype"):
+            assign_ops.wave_entry("fp16")
+
+    @pytest.mark.parametrize("d", [8, 64, 512])
+    @pytest.mark.parametrize("b,n_protos", [(1, 1), (128, 4), (100, 7),
+                                            (1024, 128), (13, 130)])
+    def test_plan_covers_each_entry_once(self, d, b, n_protos):
+        plan = assign_ops.wave_plan(b, n_protos, d, 132)
+        assert plan.block_n == (8 if n_protos <= 8 else 32
+                                if n_protos <= 32 else 128)
+        assert plan.m_tiles * assign_ops.BLOCK_M >= b
+        assert plan.n_tiles * plan.block_n >= n_protos
+        assert (plan.n_slices - 1) * plan.ksteps_per_slice < plan.ksteps \
+            <= plan.n_slices * plan.ksteps_per_slice
+        covered = torch.cat([assign_ops.slice_entries(plan, d, sl)
+                             for sl in range(plan.n_slices)])
+        assert covered.numel() == d * d
+        assert torch.equal(torch.sort(covered).values, torch.arange(d * d))
+
+    @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+    @pytest.mark.parametrize("b,n_protos,d,k", [(9, 4, 64, 8),
+                                                (70, 7, 40, 3),
+                                                (5, 130, 24, 4)])
+    def test_split_sum_matches_plain(self, dtype, b, n_protos, d, k):
+        v, p = case(b, n_protos, d, k, seed=b + d)
+        p[1] = p[0]  # an exact tie: the first index wins
+        mask = torch.ones(n_protos)
+        mask[-1] = 0.0
+        table, scales = quant.quantize_directory(t(p), dtype)
+        plan = assign_ops.wave_plan(b, n_protos, d, 132)
+        assert plan.n_slices > 1
+        got = split_k_plain(t(v), table, scales, mask, plan)
+        want = assign_wave_plain(t(v), table, scales, mask, "bf16")
+        assert torch.equal(torch.isinf(got[0]), torch.isinf(want[0]))
+        fin = torch.isfinite(want[0])
+        scale = float(want[0][fin].abs().max())
+        assert float((got[0] - want[0])[fin].abs().max()) <= 1e-6 * scale
+        assert torch.equal(got[1], want[1])
+        assert torch.equal(torch.isnan(got[2]), torch.isnan(want[2]))
+        assert torch.equal(got[0][:, 1], got[0][:, 0])
+
+    def test_split_sum_edges(self):
+        """All dead: label 0, NaN margin; one live: +inf margin; T = 1:
+        margin = affinity, as the plain version."""
+        v, p = case(6, 3, 16, 4, seed=5)
+        for n_protos, mask in [(3, torch.zeros(3)),
+                               (3, torch.tensor([0.0, 1.0, 0.0])),
+                               (1, None)]:
+            plan = assign_ops.wave_plan(6, n_protos, 16, 132)
+            got = split_k_plain(t(v), t(p[:n_protos]), None, mask, plan)
+            want = assign_wave_plain(t(v), t(p[:n_protos]), None, mask,
+                                     "bf16")
+            assert torch.equal(got[1], want[1])
+            np.testing.assert_array_equal(np.isnan(host(got[2])),
+                                          np.isnan(host(want[2])))
+            np.testing.assert_array_equal(np.isinf(host(got[2])),
+                                          np.isinf(host(want[2])))

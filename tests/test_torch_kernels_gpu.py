@@ -18,13 +18,20 @@ in bf16 (the same bf16 operands, fp32 sums in another order;
 H100), finite margins to twice that, NaN and inf margins in the same
 places, and equal labels wherever the plain margin exceeds the
 tolerance.  At d = 512 bf16 and fp32 differ by far more than the bf16
-tolerance, so a kernel that ignored the compute dtype fails.
+tolerance, so a kernel that ignored the compute dtype fails.  The bf16
+wave kernel (tensor cores, split over the d^2 axis) adds its partial
+sums in a fixed order, so two runs on the same inputs are bit-equal.
 
 The LM kernels: flash in fp32 agrees with its plain version to 1e-5 of
 the largest output (another summation order; an H100 measured 1.3e-6);
 on bf16 inputs each element of its bf16 output is within 2^-8 of its
 own value plus 1e-5 of the largest output of the fp32 function of the
-same inputs (its rounding plus the fp32 gap).  The wkv kernel's
+same inputs (its rounding plus the fp32 gap).  The tensor-core kernel
+behind bf16 inputs, with its output left in fp32
+(``ops._flash_attention_fp32_out``), agrees with the fp32 function of
+the bf16 values to 1e-5 of the largest output: p.v keeps p to about 16
+bits (its bf16 hi and lo parts), where p rounded to bf16 once would
+miss by 100x that.  The wkv kernel's
 output agrees to 1e-5 in fp32 (an fp32 dot in another order) and to
 2^-8 when it is rounded to bf16; its state and the linear scan use the
 plain versions' separately rounded IEEE operations and equal them bit
@@ -50,7 +57,9 @@ from repro_torch.kernels.featurize_gram import (batched_featurize_gram,
                                                 featurize_gram_ref)
 from repro_torch.kernels.gram_project import (batched_gram_project,
                                               gram_project_ref)
-from repro_torch.kernels.flash_attention import flash_attention, flash_ref
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
+                                                 flash_ref)
+from repro_torch.kernels.flash_attention.ops import _flash_attention_fp32_out
 from repro_torch.kernels.gram import batched_gram_matrix, gram_ref
 from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_ref,
                                                 wkv_chunked, wkv_ref)
@@ -268,6 +277,51 @@ class TestKernelsOnCard:
         name = "assign_wave" if fn is assign else "assign_one"
         assert dispatch.LAUNCHES[name] == before[name] + 4
 
+    @pytest.mark.parametrize("dtype", ["f32", "bf16", "int8"])
+    @pytest.mark.parametrize("n_protos", [1, 4, 7, 128])
+    def test_assign_wave_tensor_cores(self, cuda_device, dtype, n_protos):
+        """The bf16 wave kernel: B off the 64-arrival tile, d of 64 and
+        512, dead prototypes and an exact tie (the first index wins)."""
+        torch.manual_seed(n_protos)
+        for b, d, k in [(100, 64, 8), (130, 512, 8), (3, 64, 3)]:
+            v = torch.randn((b, d, k), device=cuda_device)
+            p = torch.randn((n_protos, d, d), device=cuda_device)
+            if n_protos > 1:
+                p[1] = p[0]
+            mask = torch.ones(n_protos, device=cuda_device)
+            if n_protos > 2:
+                mask[2::3] = 0.0
+            table, scales = quant.quantize_directory(p, dtype)
+            before = dispatch.LAUNCHES["assign_wave"]
+            got = assign(v, table, mask, "bf16", scales=scales)
+            assert dispatch.LAUNCHES["assign_wave"] == before + 1
+            want = assign_wave_plain(v, table, scales, mask, "bf16")
+            aff, margin = got[0] * k, got[2] * k
+            assert torch.equal(torch.isinf(aff), torch.isinf(want[0]))
+            fin = torch.isfinite(want[0])
+            scale = float(want[0][fin].abs().max())
+            close(aff[fin], want[0][fin], 1e-5)
+            assert torch.equal(torch.isnan(margin), torch.isnan(want[2]))
+            m_fin = torch.isfinite(want[2])
+            assert float((margin[m_fin] - want[2][m_fin]).abs().max()
+                         ) <= 2e-5 * scale
+            decided = want[2] > 1e-5 * scale
+            assert torch.equal(got[1][decided], want[1][decided])
+            if n_protos > 1:
+                assert torch.equal(aff[:, 1], aff[:, 0])
+                assert not bool((got[1] == 1).any())
+
+    def test_assign_wave_runs_are_bit_equal(self, cuda_device):
+        """The partial sums are added in a fixed order: two runs on the
+        same inputs give the same bits."""
+        torch.manual_seed(2)
+        v = torch.randn((300, 512, 8), device=cuda_device)
+        p = torch.randn((128, 512, 512), device=cuda_device)
+        first = assign(v, p, None, "bf16")
+        second = assign(v, p, None, "bf16")
+        for x, y in zip(first, second):
+            assert torch.equal(x, y)
+
     def test_landmarks_and_membership_match_cpu(self, cuda_device):
         from repro_torch.core.membership_engine import (MembershipConfig,
                                                         MembershipEngine)
@@ -327,6 +381,37 @@ class TestLMKernelsOnCard:
                     close(out, want)
                 else:
                     close_bf16(out, want)
+
+    @pytest.mark.parametrize("hd", HEAD_DIMS)
+    def test_flash_tensor_cores_fp32_out(self, cuda_device, hd):
+        """bf16 inputs through the tensor-core kernel with fp32 output,
+        against the fp32 function of the same values, to 1e-5 x
+        max|plain|: ragged S and Skv, windows over several key tiles and
+        of one key, bidirectional.  S <= Skv, so every row sees a key
+        (a row that sees none is 0 in the kernels and the mean of V in the
+        plain version)."""
+        torch.manual_seed(hd + 1)
+        for b, s, skv, h in [(2, 100, 100, 3), (1, 257, 257, 2),
+                             (1, 70, 130, 2), (1, 200, 300, 1)]:
+            q, k, v = (torch.randn((b, n, h, hd), device=cuda_device
+                                   ).to(torch.bfloat16)
+                       for n in (s, skv, skv))
+            for causal, window in [(True, 0), (True, 1), (True, 150),
+                                   (False, 0), (False, 1), (False, 130)]:
+                before = dispatch.LAUNCHES["flash_attention"]
+                out = _flash_attention_fp32_out(q, k, v, causal, window)
+                assert dispatch.LAUNCHES["flash_attention"] == before + 1
+                assert out.dtype == torch.float32 and out.shape == q.shape
+                close(out, flash_ref(q.float(), k.float(), v.float(),
+                                     causal, window))
+
+    def test_flash_tensor_cores_misaligned_view(self, cuda_device):
+        base = torch.randn(70 * 2 * 64 + 1, device=cuda_device).to(
+            torch.bfloat16)
+        q = base[1:].view(1, 70, 2, 64)
+        assert q.data_ptr() % 16
+        close(_flash_attention_fp32_out(q, q, q),
+              flash_ref(q.float(), q.float(), q.float()))
 
     def test_flash_reads_misaligned_views(self, cuda_device):
         base = torch.randn(70 * 2 * 64 + 1, device=cuda_device)

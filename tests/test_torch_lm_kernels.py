@@ -11,7 +11,10 @@ to the reference's own bar (``tests/test_kernels.py::
 test_wkv_bf16_parity``): 1e-3 at 0.1-scale inputs, against the oracle
 and against the reference's bf16 kernel.  Flash on bf16 inputs returns
 bf16; it is held to one bf16 ulp of the largest output (2^-8) against
-the fp32 function of the same inputs.
+the fp32 function of the same inputs.  The tensor-core kernel's split of
+p into two bf16 parts (``flash_ref(..., p_rounding="hi_lo")``) is held to
+2^-15 of the largest output of the reference's fp32 oracle, and p rounded
+to bf16 once must miss that oracle by more than 10x as much.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -27,6 +30,7 @@ from repro.kernels.recurrent_scan.ref import linear_scan_ref as ref_scan_ref
 from repro.kernels.recurrent_scan.ref import wkv_ref as ref_wkv_ref
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import flash_attention, flash_ref
+from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_ref,
                                                 wkv_chunked, wkv_ref)
 
@@ -108,6 +112,51 @@ class TestFlash:
             flash_attention(q, q[:, :, :1], q[:, :, :1])
         with pytest.raises(ValueError, match="window"):
             flash_attention(q, q, q, window=-1)
+
+    def test_kernel_entry_by_dtype(self):
+        """The input dtype alone chooses the kernel: bf16 the tensor
+        cores, fp32 the CUDA cores; anything else raises."""
+        assert fa_ops.kernel_entry(torch.bfloat16) == \
+            "repro_flash_attention_tc"
+        assert fa_ops.kernel_entry(torch.float32) == "repro_flash_attention"
+        with pytest.raises(TypeError, match="float32 or bfloat16"):
+            fa_ops.kernel_entry(torch.float16)
+
+    @pytest.mark.parametrize("b,s,skv,h,hd,causal,window", [
+        (2, 100, 100, 3, 64, True, 0), (1, 70, 130, 2, 128, False, 33),
+        (1, 257, 257, 2, 256, True, 130)])
+    def test_hi_lo_split_keeps_fp32_p(self, b, s, skv, h, hd, causal,
+                                      window):
+        """p split into bf16(p) + bf16(p - bf16(p)) computes the fp32
+        function to 2^-15; p rounded to bf16 once misses it by more than
+        10x that."""
+        q, k, v = (t.astype(np.float32) for t in
+                   _qkv(np.random.default_rng(hd + s), b, s, skv, h, hd))
+        want = _ref_flash_flat(q, k, v, causal, window)
+        tq, tk, tv = (torch.from_numpy(t) for t in (q, k, v))
+        hi_lo = flash_ref(tq, tk, tv, causal, window, p_rounding="hi_lo")
+        once = flash_ref(tq, tk, tv, causal, window, p_rounding="bf16")
+        assert rel_err(host(hi_lo), want) <= 2 ** -15
+        assert rel_err(host(once), want) > 10 * 2 ** -15
+
+    def test_fp32_out_wrapper(self):
+        """The check-only wrapper takes bf16 inputs and returns the fp32
+        function of their values; on the CPU that is the plain version,
+        with no launch."""
+        q, k, v = (torch.from_numpy(t).to(torch.bfloat16) for t in
+                   _qkv(np.random.default_rng(3), 1, 40, 40, 2, 64))
+        before = dict(dispatch.LAUNCHES)
+        got = fa_ops._flash_attention_fp32_out(q, k, v, causal=True,
+                                               window=16)
+        assert dispatch.LAUNCHES == before
+        assert got.dtype == torch.float32
+        assert torch.equal(got, flash_ref(q.float(), k.float(), v.float(),
+                                          True, 16))
+        with pytest.raises(TypeError, match="bf16"):
+            fa_ops._flash_attention_fp32_out(q.float(), k.float(),
+                                             v.float())
+        with pytest.raises(ValueError, match="p_rounding"):
+            flash_ref(q, k, v, p_rounding="fp16")
 
 
 def _wkv_inputs(rng, b, h, s, hd, scale=1.0):
