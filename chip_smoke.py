@@ -39,7 +39,16 @@ version, one library call and its bound.  bf16 attention and bf16
 assignment run on the tensor cores (``flash_attention_tc.cu``,
 ``assign_wave_tc.cu``); phases [2] and [4] also hold the flash kernel
 with its output left in fp32 to 1e-5 of the fp32 function, and phase
-[1] prints every kernel's registers and spills.  Every phase must pass;
+[1] prints every kernel's registers and spills.  ``featurize_gram`` and
+``gram_project`` run their fp32 products as 3xTF32 on the tensor cores:
+phases [2] and [4] hold each to 1e-5 x max|plain| and to at most 1/8 of
+the error of the plain 1xTF32 emulation (``kernels/tf32.py``) on the
+same inputs, and phase [4] runs each twice and requires the same bits
+(``featurize_gram`` in bf16 too, timed beside its fp32 entry).  Phase
+[5] times ``torch.linalg.eigh`` on 64 of the dense cell's Grams under
+cuSOLVER, MAGMA and the host's LAPACK (measurement only), each compared
+with the default backend's and an fp64 spectrum and projectors; the
+default backend must match the fp64 one.  Every phase must pass;
 the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
@@ -103,6 +112,13 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 # bf16 dense tensor-core peak, for the assign kernels' bf16 products.
 PEAK_BF16_FLOPS = 989e12
+# TF32 dense tensor-core peak (H100 SXM data sheet), for the fp32
+# products that featurize_gram and gram_project run as 3xTF32.
+PEAK_TF32_FLOPS = 495e12
+# Users a chunk of the plain 1xTF32 emulations (bounds their temporaries).
+EMULATION_USERS = 64
+# Grams of the dense cell that phase 5 hands to each eigh backend.
+EIGH_GRAMS = 64
 # bf16 assign kernels against their bf16 plain versions, x max|plain|.
 # Both round the same bf16 operands (the wave kernel and its plain
 # version form each s_ij with the same IEEE operations), so only fp32
@@ -154,6 +170,19 @@ def assign_bound_ms(ops_fp32: float, ops_product: float, compute_dtype: str,
     if t_ops >= t_bytes:
         return t_ops, "operations", t_fp32
     return t_bytes, "bytes", t_fp32
+
+
+def split_bound_ms(flops: float, nbytes: float) -> tuple[float, str, float]:
+    """Bound of a kernel that runs its fp32 products as 3xTF32: three TF32
+    products per fp32 product at the TF32 tensor-core peak, against the
+    bytes moved once.  Returns ``(bound_ms, bound_by, bound_fp32_ms)``, the
+    last with the products on the fp32 cores (``bound_ms``'s figure)."""
+    t_ops = 3 * flops / PEAK_TF32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    b32, _ = bound_ms(flops, nbytes)
+    if t_ops >= t_bytes:
+        return t_ops, "operations", b32
+    return t_bytes, "bytes", b32
 
 
 def flash_bound_ms(bh: int, hd: int, pairs: int, nbytes: float
@@ -281,6 +310,134 @@ def check_close(torch, name, out, ref, tol) -> float:
     require(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
     require(err <= tol * scale, f"{name}: kernel disagrees with plain")
     return err
+
+
+def check_split(torch, name, out, ref, emulated, tol=1e-5
+                ) -> tuple[float, float]:
+    """A 3xTF32 kernel's ``out`` against the plain fp32 function ``ref``:
+    within ``tol x max|ref|`` and at most 1/8 of the error of the plain
+    1xTF32 emulation (``hi hi`` alone) on the same inputs, so a split
+    whose lo products went missing fails here.  Returns both errors."""
+    err = max_err(torch, out, ref)
+    err_1x = max_err(torch, emulated, ref)
+    scale = float(ref.abs().max())
+    print(f"  {name}: live split: kernel max_abs_err {err:.3e} "
+          f"({err / scale:.3e} x max|plain|), 1xTF32 emulation {err_1x:.3e} "
+          f"({err_1x / scale:.3e}); ratio {err_1x / max(err, 1e-30):.1f} "
+          f"(required >= 8), tolerance {tol:g} x max|plain|")
+    require(bool(torch.isfinite(out).all()), f"{name}: non-finite output")
+    require(err <= tol * scale, f"{name}: kernel disagrees with plain")
+    require(8 * err <= err_1x, f"{name}: kernel error {err:.3e} is not 8x "
+            f"below the 1xTF32 emulation's {err_1x:.3e}")
+    return err, err_1x
+
+
+def featurize_1xtf32(torch, x, w):
+    """``(x w)^T (x w)`` with both products as one TF32 product (``hi hi``
+    of ``kernels/tf32.py``), in chunks of users."""
+    from repro_torch.kernels.tf32 import matmul_1xtf32
+
+    out = []
+    for s in range(0, x.shape[0], EMULATION_USERS):
+        f = matmul_1xtf32(x[s:s + EMULATION_USERS], w)
+        out.append(matmul_1xtf32(f.transpose(1, 2), f))
+    return torch.cat(out)
+
+
+def gram_project_1xtf32(torch, x, v, n_valid=None):
+    """``||x^T (x v)|| / max(n_valid, 1)`` with both products as one TF32
+    product, in chunks of users."""
+    from repro_torch.kernels.tf32 import matmul_1xtf32
+
+    out = torch.empty((x.shape[0], v.shape[1]), device=x.device)
+    step = max(1, EMULATION_USERS // 4)
+    for s in range(0, x.shape[0], step):
+        xs = x[s:s + step]
+        q = matmul_1xtf32(xs.transpose(1, 2), matmul_1xtf32(xs, v))
+        out[s:s + step] = torch.linalg.vector_norm(q, dim=1)
+    nv = x.shape[1] if n_valid is None else n_valid
+    nv = torch.clamp_min(torch.as_tensor(nv, dtype=torch.float32,
+                                         device=x.device), 1.0)
+    return out / nv[..., None]
+
+
+def eigh_backends(torch, grams, sim, scale: int) -> dict:
+    """Time ``torch.linalg.eigh`` (through ``sim.spectrum``) on ``grams``
+    under cuSOLVER, MAGMA and the host's LAPACK (copies counted), one
+    warm-up then one synchronised pass each, and compare each backend's
+    top-k ``lam`` and projectors ``V V^T`` with the default backend's and
+    with an fp64 spectrum of the same Grams.  A backend is eligible for
+    the dense path where it meets tests/test_torch_similarity.py's
+    tolerances (1e-5 x max lam, 1e-4) against fp64.  Measurement only:
+    ``core/similarity.py::spectrum`` keeps the default backend, and a
+    backend this build does not offer, or one that is not eligible, is
+    reported as such while the run goes on (on an H100 the default
+    backend's own lam lie 1.65e-4 x max lam from fp64)."""
+    linalg = torch.backends.cuda.preferred_linalg_library
+    before = linalg()
+    lam0, v0 = sim.spectrum(grams, TOP_K)
+    proj0 = v0 @ v0.transpose(1, 2)
+    lam64, v64 = sim.spectrum(grams.double(), TOP_K)
+    proj64 = v64 @ v64.transpose(1, 2)
+    full = torch.linalg.eigvalsh(grams.double())
+    gap = float((full[:, -TOP_K] - full[:, -TOP_K - 1]).min())
+    scale_lam = float(lam64.max())
+
+    def gaps(lam, v):
+        proj = v.double() @ v.double().transpose(1, 2)
+        return (max_err(torch, lam, lam0) / scale_lam,
+                max_err(torch, proj, proj0),
+                max_err(torch, lam, lam64) / scale_lam,
+                max_err(torch, proj, proj64))
+
+    d_lam, d_proj = gaps(lam0, v0)[2:]
+    print(f"  default backend ({before}) against fp64: lam within "
+          f"{d_lam:.3e} x max lam, projectors within {d_proj:.3e} "
+          f"(tolerances 1e-5, 1e-4: "
+          f"{'met' if d_lam <= 1e-5 and d_proj <= 1e-4 else 'NOT met'}); "
+          f"smallest gap below the top {TOP_K} eigenvalues {gap:.3e}, max "
+          f"lam {scale_lam:.3e}")
+    offered = {"cusolver": True, "magma": bool(torch.cuda.has_magma),
+               "host": True}
+    out = {"default_vs_fp64": dict(lam_rel_gap=d_lam, projector_gap=d_proj,
+                                   min_eigen_gap=gap)}
+    for name, ok in offered.items():
+        if not ok:
+            print(f"  {name}: not offered by this torch build")
+            out[name] = None
+            continue
+
+        def run():
+            if name == "host":
+                lam, v = sim.spectrum(grams.cpu(), TOP_K)
+                return lam.to(grams.device), v.to(grams.device)
+            return sim.spectrum(grams, TOP_K)
+        try:
+            if name != "host":
+                linalg(name)
+            run()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lam, v = run()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            linalg(before)
+        lam_gap, proj_gap, lam_64, proj_64 = gaps(lam, v)
+        eligible = lam_64 <= 1e-5 and proj_64 <= 1e-4
+        per = ms / grams.shape[0]
+        print(f"  {name}: {per:.3f} ms a matrix ({ms:.1f} ms for "
+              f"{grams.shape[0]}; x{scale} for the cell's "
+              f"{grams.shape[0] * scale}: {ms * scale:.1f} ms); against the "
+              f"default lam {lam_gap:.3e} x max lam, projectors "
+              f"{proj_gap:.3e}; against fp64 lam {lam_64:.3e}, projectors "
+              f"{proj_64:.3e} (tolerances 1e-5, 1e-4): "
+              f"{'eligible' if eligible else 'NOT eligible'}")
+        out[name] = dict(ms_per_matrix=per, ms=ms, ms_cell=ms * scale,
+                         lam_rel_gap=lam_gap, projector_gap=proj_gap,
+                         lam_rel_gap_fp64=lam_64, projector_gap_fp64=proj_64,
+                         eligible=eligible)
+    return out
 
 
 def check_assign(torch, name, got, want, k, compute_dtype, quiet=False
@@ -473,7 +630,9 @@ def main() -> int:
     print("  nn_chain (300 leaves): merges, sorted heights and labels "
           "equal to the plain loop (exact) for all three linkages")
     # featurize_gram: fp32 to 1e-5 x max; bf16 against the plain
-    # bf16-rounding version at the reference's 2e-2 x max.
+    # bf16-rounding version at the reference's 2e-2 x max.  The first
+    # case also holds the fp32 kernel to 1/8 of the 1xTF32 emulation's
+    # error (the live-split check).
     for n_users, c, m, d in [(16, 128, 3072, 512), (16, 300, 784, 100)]:
         x = randn(n_users, c, m)
         counts = torch.randint(1, c + 1, (n_users,), generator=gen).to(dev)
@@ -481,9 +640,13 @@ def main() -> int:
         w = randn(m, d) / d ** 0.5
         for cd, tol in (("fp32", 1e-5), ("bf16", 2e-2)):
             out = batched_featurize_gram(x, w, cd)
-            check_close(torch, f"featurize_gram {cd} ragged "
-                        f"({n_users}, {c}, {m}) x ({m}, {d})", out,
-                        featurize_gram_ref(x, w, cd), tol)
+            name = (f"featurize_gram {cd} ragged ({n_users}, {c}, {m}) x "
+                    f"({m}, {d})")
+            ref = featurize_gram_ref(x, w, cd)
+            check_close(torch, name, out, ref, tol)
+            if cd == "fp32" and d == 512:
+                check_split(torch, name, out, ref,
+                            featurize_1xtf32(torch, x, w))
             require(torch.equal(out, out.transpose(1, 2)),
                     "featurize_gram: Gram not symmetric")
         acc = randn(n_users, d, d)
@@ -496,10 +659,13 @@ def main() -> int:
         counts = torch.randint(1, n + 1, (n_users,), generator=gen).to(dev)
         x[torch.arange(n, device=dev)[None, :] >= counts[:, None]] = 0.0
         v = randn(d, k_cols)
-        check_close(torch, f"gram_project ragged ({n_users}, {n}, {d}) x "
-                    f"({d}, {k_cols})",
-                    batched_gram_project(x, v, counts.float()),
-                    gram_project_ref(x, v, counts.float()), 1e-5)
+        name = f"gram_project ragged ({n_users}, {n}, {d}) x ({d}, {k_cols})"
+        out = batched_gram_project(x, v, counts.float())
+        ref = gram_project_ref(x, v, counts.float())
+        check_close(torch, name, out, ref, 1e-5)
+        if d == 512:
+            check_split(torch, name, out, ref, gram_project_1xtf32(
+                torch, x, v, counts.float()))
 
     # assign_wave and assign_one: every directory dtype, both compute
     # dtypes, B = 1 and B not a multiple of the arrival tile (under fp32,
@@ -1383,12 +1549,33 @@ def main() -> int:
         launches=launches["linkage"], max_abs_err=chain_err, ms=t_kernel,
         plain_ms=t_plain, bound_ms=b, bound_by=by, library_ms=None))
 
-    # featurize_gram at the raw path's shapes, all rows in one launch.
+    # featurize_gram at the raw path's shapes, all rows in one launch:
+    # fp32 (the main path's compute dtype) as 3xTF32, held to 1e-5 x
+    # max|plain| and to 1/8 of the 1xTF32 emulation's error; then bf16.
+    # Two runs of each are bit-equal, and each Gram symmetric bit for bit.
     w_raw = engine.params_for(m_raw)["w"]
-    fg_err = check_close(torch, f"featurize_gram ({n_raw}, {rows_raw}, "
-                         f"{m_raw}) x ({m_raw}, {DIM})",
-                         batched_featurize_gram(raw_x, w_raw),
-                         featurize_gram_ref(raw_x, w_raw), 1e-5)
+    fg_name = f"featurize_gram ({n_raw}, {rows_raw}, {m_raw}) x ({m_raw}, {DIM})"
+    fg_out = batched_featurize_gram(raw_x, w_raw)
+    fg_ref = featurize_gram_ref(raw_x, w_raw)
+    fg_err = check_close(torch, fg_name, fg_out, fg_ref, 1e-5)
+    _, fg_err_1x = check_split(torch, fg_name, fg_out, fg_ref,
+                               featurize_1xtf32(torch, raw_x, w_raw))
+    require(torch.equal(fg_out, batched_featurize_gram(raw_x, w_raw))
+            and torch.equal(fg_out, fg_out.transpose(1, 2)),
+            "featurize_gram: two runs differ or the Gram is not symmetric")
+    del fg_ref
+    fg16_ref = featurize_gram_ref(raw_x, w_raw, "bf16")
+    fg16_err = check_close(torch, f"{fg_name} bf16",
+                           batched_featurize_gram(raw_x, w_raw, "bf16"),
+                           fg16_ref, 2e-2)
+    fg16_out = batched_featurize_gram(raw_x, w_raw, "bf16")
+    require(torch.equal(fg16_out, batched_featurize_gram(raw_x, w_raw, "bf16"))
+            and torch.equal(fg16_out, fg16_out.transpose(1, 2)),
+            "featurize_gram bf16: two runs differ or the Gram is not "
+            "symmetric")
+    del fg16_ref, fg16_out, fg_out
+    print("  featurize_gram fp32 and bf16 at the raw shape: two runs "
+          "bit-equal, Grams symmetric bit for bit")
     t_kernel = time_ms(torch, lambda: batched_featurize_gram(raw_x, w_raw), 3)
     t_plain = time_ms(torch, lambda: featurize_gram_ref(raw_x, w_raw), 3)
 
@@ -1396,25 +1583,50 @@ def main() -> int:
         f = raw_x @ w_raw
         return torch.bmm(f.transpose(1, 2), f)
 
+    def library_featurize_bf16():
+        f = raw_x.bfloat16() @ w_raw.bfloat16()
+        return torch.bmm(f.transpose(1, 2), f)
+
     t_lib = time_ms(torch, library_featurize, 3)
     # The projection, then one triangle of the symmetric Gram.
-    b, by = bound_ms(1.0 * n_raw * (2.0 * rows_raw * m_raw * DIM
-                                    + rows_raw * DIM * (DIM + 1)),
-                     4.0 * (n_raw * rows_raw * m_raw + m_raw * DIM
-                            + n_raw * DIM * DIM))
+    fg_ops = 1.0 * n_raw * (2.0 * rows_raw * m_raw * DIM
+                            + rows_raw * DIM * (DIM + 1))
+    fg_bytes = 4.0 * (n_raw * rows_raw * m_raw + m_raw * DIM
+                      + n_raw * DIM * DIM)
+    b, by, b32 = split_bound_ms(fg_ops, fg_bytes)
+    b16, by16, _ = assign_bound_ms(0.0, fg_ops, "bf16", fg_bytes)
+    fg_bf16 = dict(
+        max_abs_err=fg16_err,
+        ms=time_ms(torch, lambda: batched_featurize_gram(raw_x, w_raw,
+                                                         "bf16"), 3),
+        plain_ms=time_ms(torch, lambda: featurize_gram_ref(raw_x, w_raw,
+                                                           "bf16"), 3),
+        bound_ms=b16, bound_by=by16,
+        library_ms=time_ms(torch, library_featurize_bf16, 3),
+        library_call="f = x.bfloat16() @ w.bfloat16(); torch.bmm(f^T, f)")
     kernels.append(dict(
         name="featurize_gram", route="cuda",
         source="src/repro_torch/kernels/csrc/featurize_gram.cu",
         replaces="src/repro/kernels/featurize_gram/featurize_gram.py:94",
         launches=launches_r["featurize_gram"], max_abs_err=fg_err,
+        emulated_1xtf32_err=fg_err_1x,
         ms=t_kernel, plain_ms=t_plain, bound_ms=b, bound_by=by,
-        library_ms=t_lib))
+        bound_fp32_ms=b32, library_ms=t_lib,
+        library_call="f = x @ w; torch.bmm(f^T, f) (fp32, TF32 off)",
+        bf16=fg_bf16))
 
     # gram_project at the blockwise path's shapes, all users in one launch.
     k_all = v_flat.shape[1]
-    gp_err = check_close(torch, f"gram_project ({n_}, {m_}, {d_}) x "
-                         f"({d_}, {k_all})", batched_gram_project(x, v_flat),
-                         gram_project_ref(x, v_flat), 1e-5)
+    gp_name = f"gram_project ({n_}, {m_}, {d_}) x ({d_}, {k_all})"
+    gp_out = batched_gram_project(x, v_flat)
+    gp_ref = gram_project_ref(x, v_flat)
+    gp_err = check_close(torch, gp_name, gp_out, gp_ref, 1e-5)
+    _, gp_err_1x = check_split(torch, gp_name, gp_out, gp_ref,
+                               gram_project_1xtf32(torch, x, v_flat))
+    require(torch.equal(gp_out, batched_gram_project(x, v_flat)),
+            "gram_project: two runs on the same inputs differ")
+    print("  gram_project at the blockwise shape: two runs bit-equal")
+    del gp_out, gp_ref
     t_kernel = time_ms(torch, lambda: batched_gram_project(x, v_flat), 3)
     t_plain = time_ms(torch, lambda: gram_project_ref(x, v_flat), 3)
 
@@ -1428,15 +1640,19 @@ def main() -> int:
         return out
 
     t_lib = time_ms(torch, library_gram_project, 3)
-    b, by = bound_ms(4.0 * n_ * m_ * d_ * k_all,
-                     4.0 * (n_ * m_ * d_ + d_ * k_all + n_ * k_all))
+    b, by, b32 = split_bound_ms(4.0 * n_ * m_ * d_ * k_all,
+                                4.0 * (n_ * m_ * d_ + d_ * k_all
+                                       + n_ * k_all))
     kernels.append(dict(
         name="gram_project", route="cuda",
         source="src/repro_torch/kernels/csrc/gram_project.cu",
         replaces="src/repro/kernels/gram_project/gram_project.py:99",
         launches=launches_b["gram_project"], max_abs_err=gp_err,
+        emulated_1xtf32_err=gp_err_1x,
         ms=t_kernel, plain_ms=t_plain, bound_ms=b, bound_by=by,
-        library_ms=t_lib))
+        bound_fp32_ms=b32, library_ms=t_lib,
+        library_call="xs @ v, torch.bmm(xs^T, p), vector_norm, per "
+                     "128-user tile (fp32, TF32 off)"))
     # assign_wave at the landmark path's shape (f32 table, bf16 inputs)
     # and at the serving cell's (f32 and int8 tables); assign_one at the
     # serving shape.  Library call: the reference's own formulation in
@@ -1665,6 +1881,11 @@ def main() -> int:
               f"{e['library_ms']:.3f}, bound {e['bound_ms']:.4f} by "
               f"{e['bound_by']}, {e['bound_fp32_ms']:.4f} all on the fp32 "
               f"cores)")
+    e = kernels[[k["name"] for k in kernels].index("featurize_gram")]["bf16"]
+    print(f"  featurize_gram bf16 at the raw shape: {e['ms']:.3f} ms (plain "
+          f"{e['plain_ms']:.3f}, library {e['library_ms']:.3f} "
+          f"({e['library_call']}), bound {e['bound_ms']:.4f} by "
+          f"{e['bound_by']}), max_abs_err {e['max_abs_err']:.3e}")
     for kern in kernels:
         lib = kern["library_ms"]
         print(f"  {kern['name']}: {kern['ms']:.3f} ms (plain "
@@ -1677,6 +1898,13 @@ def main() -> int:
               f"{kern['launches']}")
 
     phase_done("phase 4")
+
+    # -- Phase 5: eigh backends (measurement only) -------------------------
+    print(f"[5] torch.linalg.eigh on {EIGH_GRAMS} of the dense cell's Grams "
+          f"({d_} x {d_}, fp32), by backend")
+    summary["eigh_backends"] = eigh_backends(torch, grams[:EIGH_GRAMS], sim,
+                                             n_ // EIGH_GRAMS)
+    phase_done("phase 5")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - t_start:.1f} s")
     summary["total_s"] = time.perf_counter() - t_start

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LIB_NAME = "libkernels.so"
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 #: C entry point -> argtypes (every entry returns its cudaError_t).
 _SIGNATURES = {
     "repro_gram": (_P, _P, _I, _I, _I, _P),
@@ -39,10 +39,11 @@ _SIGNATURES = {
     "repro_linkage_step": (_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _P),
     "repro_nn_chain": (_P, _I, _I, _I, _P, _P, _P, _P),
     "repro_nn_chain_smem": (_I,),
-    "repro_featurize_gram": (_P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_featurize_gram_rows": (_I,),
-    "repro_gram_project": (_P, _P, _P, _I, _I, _I, _I, _P),
-    "repro_gram_project_slab": (_I,),
+    "repro_featurize_gram": (_P, _L, _P, _I, _P, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
+    "repro_featurize_gram_smem": (_I, _I, _I, _I),
+    "repro_gram_project": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_gram_project_smem": (_I, _I, _I),
     "repro_assign_wave": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _P),
     "repro_assign_wave_tc": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "repro_error_string": (_I,),
 }
 _RESTYPES = {"repro_nn_chain_smem": ctypes.c_int64,
+             "repro_featurize_gram_smem": ctypes.c_int64,
+             "repro_gram_project_smem": ctypes.c_int64,
              "repro_assign_one_smem": ctypes.c_int64,
              "repro_error_string": ctypes.c_char_p}
 

@@ -9,7 +9,11 @@ a machine with only PyTorch:
 Tolerances: the gram, eigproject, featurize_gram (fp32) and
 gram_project kernels sum in fp32 in another order than cuBLAS, so they
 agree to 1e-5 of the largest entry; featurize_gram in bf16 is held to
-the reference's 2e-2 of the largest entry; the linkage kernels use the
+the reference's 2e-2 of the largest entry.  featurize_gram (fp32) and
+gram_project run their products as 3xTF32 on the tensor cores: each is
+also held to at most 1/8 of the error of the plain 1xTF32 emulation
+(``kernels/tf32.py::matmul_1xtf32``, hi hi alone) on the same inputs,
+and two runs give the same bits; the linkage kernels use the
 plain version's IEEE operations and agree exactly.  The assign kernels
 agree with their plain versions to 1e-4 of the largest affinity in fp32
 (the reference's bar; a d = 512 affinity sums 262,144 terms) and 1e-5
@@ -63,6 +67,7 @@ from repro_torch.kernels.flash_attention.ops import _flash_attention_fp32_out
 from repro_torch.kernels.gram import batched_gram_matrix, gram_ref
 from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_ref,
                                                 wkv_chunked, wkv_ref)
+from repro_torch.kernels.tf32 import matmul_1xtf32
 from repro_torch.kernels.linkage import (LINKAGES, linkage_step,
                                          linkage_step_ref, nn_chain,
                                          nn_chain_ref)
@@ -142,6 +147,115 @@ class TestKernelsOnCard:
             out = batched_gram_project(x, v, nv)
             assert dispatch.LAUNCHES["gram_project"] == before + 1
             close(out, gram_project_ref(x, v, nv))
+
+    def test_featurize_gram_live_split(self, cuda_device):
+        # 3xTF32 against the plain fp32 function: within 1e-5 and at most
+        # 1/8 of the plain 1xTF32 emulation's error on the same inputs.
+        torch.manual_seed(1)
+        x = torch.randn((4, 128, 3072), device=cuda_device)
+        x[:, 100:] = 0.0
+        w = torch.randn((3072, 512), device=cuda_device) / 512 ** 0.5
+        ref = featurize_gram_ref(x, w)
+        f1 = matmul_1xtf32(x, w)
+        err = float((batched_featurize_gram(x, w).double()
+                     - ref.double()).abs().max())
+        err_1x = float((matmul_1xtf32(f1.transpose(1, 2), f1).double()
+                        - ref.double()).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), err
+        assert 8 * err <= err_1x, (err, err_1x)
+
+    def test_gram_project_live_split(self, cuda_device):
+        torch.manual_seed(1)
+        x = torch.randn((4, 256, 512), device=cuda_device)
+        v = torch.randn((512, 1000), device=cuda_device)
+        ref = gram_project_ref(x, v)
+        q1 = matmul_1xtf32(x.transpose(1, 2), matmul_1xtf32(x, v))
+        err = float((batched_gram_project(x, v).double()
+                     - ref.double()).abs().max())
+        emulated = torch.linalg.vector_norm(q1, dim=1) / 256
+        err_1x = float((emulated.double() - ref.double()).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), err
+        assert 8 * err <= err_1x, (err, err_1x)
+
+    @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+    def test_featurize_gram_runs_are_bit_equal(self, cuda_device,
+                                               compute_dtype):
+        torch.manual_seed(2)
+        x = torch.randn((3, 200, 784), device=cuda_device)
+        w = torch.randn((784, 300), device=cuda_device) / 300 ** 0.5
+        out = batched_featurize_gram(x, w, compute_dtype)
+        assert torch.equal(out, batched_featurize_gram(x, w, compute_dtype))
+
+    def test_gram_project_runs_are_bit_equal(self, cuda_device):
+        torch.manual_seed(2)
+        x = torch.randn((3, 100, 512), device=cuda_device)
+        v = torch.randn((512, 300), device=cuda_device)
+        assert torch.equal(batched_gram_project(x, v),
+                           batched_gram_project(x, v))
+
+    @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+    def test_featurize_gram_ragged_edges(self, cuda_device, compute_dtype):
+        # c, m and d off every tile (rows 64/32/16, k-stages 32/16,
+        # 16-byte copies, 8-column W rows, Gram tile 128, slabs 256/512),
+        # every row tile of the plan (d = 1500: 16 rows in fp32; d = 3200:
+        # 16 rows and a one-stage ring in fp32), and a row-chunk view of a
+        # larger stack (users a stride apart).
+        torch.manual_seed(3)
+        tol = 1e-5 if compute_dtype == "fp32" else 2e-2
+        for n_users, c, m, d in [(3, 71, 197, 131), (2, 65, 1001, 257),
+                                 (2, 33, 50, 1029), (2, 37, 90, 1500),
+                                 (1, 21, 40, 3200)]:
+            x = torch.randn((n_users, c, m), device=cuda_device)
+            w = torch.randn((m, d), device=cuda_device) / d ** 0.5
+            out = batched_featurize_gram(x, w, compute_dtype)
+            close(out, featurize_gram_ref(x, w, compute_dtype), tol)
+            assert torch.equal(out, out.transpose(1, 2))
+        stack = torch.randn((3, 90, 200), device=cuda_device)
+        w = torch.randn((200, 96), device=cuda_device)
+        view = stack[:, 13:80]
+        close(batched_featurize_gram(view, w, compute_dtype),
+              featurize_gram_ref(view, w, compute_dtype), tol)
+
+    @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+    def test_featurize_gram_accumulates_symmetric(self, cuda_device,
+                                                  compute_dtype):
+        # out= a non-zero symmetric Gram: the sum stays symmetric bit for
+        # bit.
+        torch.manual_seed(4)
+        tol = 1e-5 if compute_dtype == "fp32" else 2e-2
+        x = torch.randn((3, 150, 640), device=cuda_device)
+        w = torch.randn((640, 384), device=cuda_device) / 384 ** 0.5
+        a = torch.randn((3, 384, 384), device=cuda_device)
+        acc = a + a.transpose(1, 2)
+        expect = acc + featurize_gram_ref(x, w, compute_dtype)
+        out = batched_featurize_gram(x, w, compute_dtype, out=acc)
+        assert out is acc
+        close(out, expect, tol)
+        assert torch.equal(out, out.transpose(1, 2))
+
+    def test_gram_project_ragged_edges(self, cuda_device):
+        # n, d and K off every tile (16 rows, depth 128, slabs 64/32/16/8).
+        torch.manual_seed(5)
+        for n_users, n, d, k in [(3, 37, 131, 77), (2, 19, 1029, 67),
+                                 (2, 50, 2000, 21), (1, 5, 7, 9)]:
+            x = torch.randn((n_users, n, d), device=cuda_device)
+            v = torch.randn((d, k), device=cuda_device)
+            close(batched_gram_project(x, v), gram_project_ref(x, v))
+
+    def test_plans_match_the_kernels(self, cuda_device):
+        from repro_torch.kernels import build
+        from repro_torch.kernels.featurize_gram import ops as fg_ops
+        from repro_torch.kernels.gram_project import ops as gp_ops
+
+        lib = build.library()
+        for d in (3, 100, 512, 900, 1500, 2048):
+            for cd in ("fp32", "bf16"):
+                plan = fg_ops.featurize_plan(d, cd)
+                assert lib.repro_featurize_gram_smem(
+                    d, plan.rows, plan.stages, int(cd == "bf16")) == plan.smem
+            plan = gp_ops.project_plan(d)
+            assert lib.repro_gram_project_smem(d, plan.bk, plan.stages) \
+                == plan.smem
 
     @pytest.mark.parametrize("linkage", LINKAGES)
     def test_linkage_step(self, cuda_device, linkage):
