@@ -44,12 +44,24 @@ with its output left in fp32 to 1e-5 of the fp32 function, and phase
 phases [2] and [4] hold each to 1e-5 x max|plain| and to at most 1/8 of
 the error of the plain 1xTF32 emulation (``kernels/tf32.py``) on the
 same inputs, and phase [4] runs each twice and requires the same bits
-(``featurize_gram`` in bf16 too, timed beside its fp32 entry).  Phase
-[5] times ``torch.linalg.eigh`` on 64 of the dense cell's Grams under
-cuSOLVER, MAGMA and the host's LAPACK (measurement only), each compared
-with the default backend's and an fp64 spectrum and projectors; the
-default backend must match the fp64 one.  Every phase must pass;
-the last line is
+(``featurize_gram`` in bf16 too, timed beside its fp32 entry).  ``gram``
+runs one triangle of 128 x 128 tile pairs as 3xTF32 on ``wgmma``: phase
+[2] holds it on both load routes (TMA, (64, 256, 512); 4-byte cp.async,
+(8, 37, 130)) and phase [4] at the dense shape to 1e-5 x max|plain| and
+1/8 of the 1xTF32 emulation's error, requires the output symmetric bit
+for bit and two runs bit-equal, prints the block count (users x tile
+pairs), and phase [2] holds its ``n_valid`` divisor to the division after
+the kernel, bit for bit.  ``assign_one`` (bf16 on ``mma.sync``, split
+over arrival groups x slices of P) is held to its plain version in
+phase [2] also at (16, 3, 1024, 64), where V is staged in chunks of d;
+phase [4] requires two runs bit-equal at the serving shape and
+prints its device time and the library call's from ``torch.profiler``
+beside the wrapper-level event times, as for ``assign_wave`` at its two
+serving shapes.  Phase [5] times ``torch.linalg.eigh`` on 64 of the
+dense cell's Grams under cuSOLVER, MAGMA and the host's LAPACK, each
+compared with the default backend's and an fp64 spectrum and
+projectors: it measures and reports, and requires no agreement.  Every
+phase must pass; the last line is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -344,6 +356,50 @@ def featurize_1xtf32(torch, x, w):
     return torch.cat(out)
 
 
+def gram_1xtf32(torch, x):
+    """``x^T x`` as one TF32 product (``hi hi``), in chunks of users."""
+    from repro_torch.kernels.tf32 import matmul_1xtf32
+
+    return torch.cat([matmul_1xtf32(xs.transpose(1, 2), xs)
+                      for xs in x.split(EMULATION_USERS)])
+
+
+def device_ms(torch, fn, calls: int = 20) -> tuple[float, str, dict]:
+    """Device time of one call of ``fn``: ``torch.profiler`` over ``calls``
+    calls, the self device time of every kernel summed and divided by
+    ``calls``.  Returns ``(ms, how, {kernel name: ms a call})``.  Where the
+    profiler records no device time it says so and times ``100`` calls
+    between one pair of CUDA events instead (``how`` names the method)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = {}
+    for ev in prof.key_averages():
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0.0))
+            if us > 0:
+                names[ev.key] = us / 1e3 / calls
+    if names:
+        return sum(names.values()), f"profiler, {calls} calls", names
+    print("  (torch.profiler recorded no device time here: timing 100 "
+          "calls between one pair of CUDA events instead)")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(100):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / 100, "events, 100 calls", {}
+
+
 def gram_project_1xtf32(torch, x, v, n_valid=None):
     """``||x^T (x v)|| / max(n_valid, 1)`` with both products as one TF32
     product, in chunks of users."""
@@ -503,7 +559,8 @@ def main() -> int:
                                                 project_norms_all_ref)
     from repro_torch.kernels.featurize_gram import (batched_featurize_gram,
                                                     featurize_gram_ref)
-    from repro_torch.kernels.gram import batched_gram_matrix, gram_ref
+    from repro_torch.kernels.gram import (batched_gram_matrix, gram_plan,
+                                          gram_ref)
     from repro_torch.kernels.gram_project import (batched_gram_project,
                                                   gram_project_ref)
     from repro_torch.kernels.linkage import (LINKAGES, linkage_step,
@@ -513,6 +570,7 @@ def main() -> int:
     from repro_torch.kernels.assign import (assign, assign_looped,
                                             assign_looped_plain,
                                             assign_wave_plain)
+    from repro_torch.kernels.assign import ops as assign_ops
     from repro_torch.launch import membership as launch_membership
     from repro_torch.core.engine import landmark_indices
     from repro_torch.core.membership_engine import (MembershipConfig,
@@ -582,15 +640,31 @@ def main() -> int:
 
     # -- Phase 2: each kernel against its plain version -------------------
     print("[2] kernels vs plain versions on the card")
-    x = randn(64, 256, 512)
-    check_close(torch, "gram (64, 256, 512)", batched_gram_matrix(x),
-                gram_ref(x), 1e-5)
+    # gram: 3xTF32 on wgmma, one triangle of tile pairs.  Both load
+    # routes (TMA where a row of X is a multiple of 16 bytes, 4-byte
+    # cp.async else) held to 1e-5 and to 1/8 of the 1xTF32 emulation's
+    # error, symmetric bit for bit; the divisor against the division
+    # after the kernel.
+    for shape in [(64, 256, 512), (8, 37, 130)]:
+        x = randn(*shape)
+        g = batched_gram_matrix(x)
+        check_split(torch, f"gram {shape} ({gram_plan(shape[2]).route})", g,
+                    gram_ref(x), gram_1xtf32(torch, x))
+        require(torch.equal(g, g.mT), f"gram {shape}: not symmetric")
     x = randn(16, 300, 784)
     n_valid = torch.randint(1, 300, (16,), generator=gen).to(dev)
     x[torch.arange(300, device=dev)[None, :] >= n_valid[:, None]] = 0.0
     check_close(torch, "gram ragged (16, 300, 784)",
                 sim.batched_gram(x, n_valid.float()),
                 gram_ref(x) / n_valid.float()[:, None, None], 1e-5)
+    nv = n_valid.float()
+    nv[0] = 0.0
+    g = batched_gram_matrix(x, nv)
+    check_close(torch, "gram n_valid divisor (16, 300, 784)", g,
+                gram_ref(x) / torch.clamp_min(nv, 1.0)[:, None, None], 1e-5)
+    require(torch.equal(g, batched_gram_matrix(x)
+                        / torch.clamp_min(nv, 1.0)[:, None, None]),
+            "gram: the epilogue's divisor differs from the division after")
     for n, d, k in [(64, 512, 8), (33, 784, 5)]:
         g = randn(n, d, d)
         g = g @ g.transpose(1, 2) / d
@@ -706,8 +780,23 @@ def main() -> int:
                     note(cd, check_assign(
                         torch, f"assign_one ({b_}, {t_}, {d_}, {k_}) {dt} "
                         f"{cd}", got, want, k_, cd, quiet=True))
+    # assign_one where V does not fit a block's shared memory (256 KB of
+    # bf16 at d = 1024, k = 64): the kernel stages it in chunks of d.
+    v = randn(16, 1024, 64)
+    p = randn(3, 1024, 1024)
+    p = (p + p.transpose(1, 2)) / 2
+    for dt in ("f32", "bf16"):
+        table, _ = quant.quantize_directory(p, dt)
+        for cd in ("fp32", "bf16"):
+            note(cd, check_assign(
+                torch, f"assign_one (16, 3, 1024, 64) {dt} {cd}",
+                assign_looped(v, table, None, cd),
+                assign_looped_plain(v, table, None, cd), 64, cd))
+    del v, p, table
     print(f"  assign_wave, assign_one: 8 shapes x 3 directory dtypes x 2 "
-          f"compute dtypes, dead prototypes: max|kernel - plain| / "
+          f"compute dtypes (assign_one also at (16, 3, 1024, 64), V in "
+          f"chunks of d), dead prototypes: "
+          f"max|kernel - plain| / "
           f"max|plain|, affinities and margins: fp32 "
           f"{assign_errs['fp32'][0]:.3e} and {assign_errs['fp32'][1]:.3e} "
           f"(tolerance 1e-4, margins 2e-4), bf16 "
@@ -1484,21 +1573,35 @@ def main() -> int:
     n_, m_, d_, k_ = N_USERS, N_SAMPLES, DIM, TOP_K
     kernels = []
 
-    gram_err = check_close(torch, f"gram ({n_}, {m_}, {d_})",
-                           batched_gram_matrix(x), gram_ref(x), 1e-5)
+    g = batched_gram_matrix(x)
+    gram_err, gram_err_1x = check_split(
+        torch, f"gram ({n_}, {m_}, {d_})", g, gram_ref(x),
+        gram_1xtf32(torch, x))
+    require(torch.equal(g, g.mT), "gram: the Gram is not symmetric")
+    require(torch.equal(g, batched_gram_matrix(x)),
+            "gram: two runs on the same inputs differ")
+    del g
+    plan = gram_plan(d_)
+    print(f"  gram: {n_} users x {len(plan.pairs)} tile pairs (I <= J of "
+          f"{plan.tiles} x {plan.tiles}) = {n_ * len(plan.pairs)} blocks, "
+          f"{plan.route} loads; symmetric bit for bit, two runs bit-equal")
     t_kernel = time_ms(torch, lambda: batched_gram_matrix(x), 5)
     t_plain = time_ms(torch, lambda: gram_ref(x), 5)
     t_lib = time_ms(torch, lambda: torch.bmm(x.transpose(1, 2), x), 5)
     # X^T X is symmetric: the function needs one triangle and its
-    # diagonal, N * n * d * (d + 1) operations (a syrk's count).
-    b, by = bound_ms(1.0 * n_ * m_ * d_ * (d_ + 1),
-                     4.0 * (n_ * m_ * d_ + n_ * d_ * d_))
+    # diagonal, N * n * d * (d + 1) operations (a syrk's count), here as
+    # 3xTF32; bound_fp32_ms has them on the fp32 cores.
+    b, by, b32 = split_bound_ms(1.0 * n_ * m_ * d_ * (d_ + 1),
+                                4.0 * (n_ * m_ * d_ + n_ * d_ * d_))
     kernels.append(dict(
         name="gram", route="cuda",
         source="src/repro_torch/kernels/csrc/gram.cu",
         replaces="src/repro/kernels/gram/gram.py:40",
-        launches=launches["gram"], max_abs_err=gram_err, ms=t_kernel,
-        plain_ms=t_plain, bound_ms=b, bound_by=by, library_ms=t_lib))
+        launches=launches["gram"], max_abs_err=gram_err,
+        emulated_1xtf32_err=gram_err_1x, blocks=n_ * len(plan.pairs),
+        ms=t_kernel, plain_ms=t_plain, bound_ms=b, bound_by=by,
+        bound_fp32_ms=b32, library_ms=t_lib,
+        library_call="torch.bmm(x^T, x) (fp32, TF32 off)"))
 
     def library_norms():
         out = torch.empty((n_, n_, k_), device=dev)
@@ -1705,6 +1808,12 @@ def main() -> int:
         table, scales = quant.quantize_directory(serve_f32, dt)
         serving[dt] = assign_entry("assign_wave", serve_v, table, scales,
                                    "bf16", 10)
+        p_f = quant.dequantize_directory(table, scales)
+        serving[dt]["device_ms"], serving[dt]["device_time_by"], _ = \
+            device_ms(torch, lambda: assign(serve_v, table, None, "bf16",
+                                            scales=scales))
+        serving[dt]["library_device_ms"] = device_ms(
+            torch, lambda: library_assign(serve_v, p_f, "bf16"))[0]
     kernels.append(dict(
         name="assign_wave", route="cuda",
         source="src/repro_torch/kernels/csrc/assign_wave_tc.cu",
@@ -1717,10 +1826,26 @@ def main() -> int:
 
     b_, d_, k_ = serve_v.shape
     t_ = serve_f32.shape[0]
+    one_out = assign_looped(serve_v, serve_f32, None, "bf16")
     one_rel, one_m_rel, one_err = check_assign(
-        torch, f"assign_one ({b_}, {t_}, {d_}, {k_}) f32 bf16",
-        assign_looped(serve_v, serve_f32, None, "bf16"),
+        torch, f"assign_one ({b_}, {t_}, {d_}, {k_}) f32 bf16", one_out,
         assign_looped_plain(serve_v, serve_f32, None, "bf16"), k_, "bf16")
+    require(all(torch.equal(a_, b2_) for a_, b2_ in zip(
+        one_out, assign_looped(serve_v, serve_f32, None, "bf16"))),
+        "assign_one: two runs on the same inputs differ")
+    one_plan_ = assign_ops.one_plan(
+        b_, t_, d_, k_, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+    print(f"  assign_one serving shape: two runs bit-equal; {one_plan_.blocks} "
+          f"blocks ({one_plan_.n_groups} groups of {one_plan_.group} arrivals "
+          f"x {one_plan_.n_slices} slices of {one_plan_.slice_rows} rows)")
+    one_dev, one_how, one_names = device_ms(
+        torch, lambda: assign_looped(serve_v, serve_f32, None, "bf16"))
+    one_lib_dev = device_ms(torch, lambda: library_assign(
+        serve_v, serve_f32, "bf16"))[0]
+    print(f"  assign_one device time {one_dev:.4f} ms a call ({one_how}: "
+          + ", ".join(f"{k[:40]} {v:.4f}" for k, v in one_names.items())
+          + f"), library call {one_lib_dev:.4f} ms")
     # P_t V in the compute dtype, then sum(W o V) in fp32.
     nbytes = 4.0 * (t_ * d_ * d_ + b_ * d_ * k_ + b_ * t_)
     b, by, b32 = assign_bound_ms(2.0 * b_ * t_ * d_ * k_,
@@ -1733,12 +1858,13 @@ def main() -> int:
         margin_rel_err=one_m_rel,
         ms=time_ms(torch, lambda: assign_looped(serve_v, serve_f32, None,
                                                 "bf16"), 10),
+        device_ms=one_dev, device_time_by=one_how,
         plain_ms=time_ms(torch, lambda: assign_looped_plain(
             serve_v, serve_f32, None, "bf16"), 10),
         bound_ms=b, bound_by=by, bound_fp32_ms=b32,
         library_ms=time_ms(torch, lambda: library_assign(serve_v, serve_f32,
                                                          "bf16"), 10),
-        shape=[b_, d_, k_, t_]))
+        library_device_ms=one_lib_dev, shape=[b_, d_, k_, t_]))
 
     # flash_attention at the two prefill cells' shapes (bf16, as the
     # models run): Qwen3 (B=2, S=4096, H=16, hd=128, causal) and, nested,
@@ -1880,7 +2006,12 @@ def main() -> int:
               f"table: {e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
               f"{e['library_ms']:.3f}, bound {e['bound_ms']:.4f} by "
               f"{e['bound_by']}, {e['bound_fp32_ms']:.4f} all on the fp32 "
-              f"cores)")
+              f"cores); device time {e['device_ms']:.4f} ms, library "
+              f"{e['library_device_ms']:.4f} ({e['device_time_by']})")
+    e = kernels[[k["name"] for k in kernels].index("assign_one")]
+    print(f"  assign_one serving shape: device time {e['device_ms']:.4f} ms "
+          f"a call, library {e['library_device_ms']:.4f} "
+          f"({e['device_time_by']}); wrapper-level events {e['ms']:.4f}")
     e = kernels[[k["name"] for k in kernels].index("featurize_gram")]["bf16"]
     print(f"  featurize_gram bf16 at the raw shape: {e['ms']:.3f} ms (plain "
           f"{e['plain_ms']:.3f}, library {e['library_ms']:.3f} "

@@ -159,12 +159,12 @@ def gram(features: torch.Tensor, *, n_valid=None) -> torch.Tensor:
 def batched_gram(features: torch.Tensor, n_valid: torch.Tensor | None = None
                  ) -> torch.Tensor:
     """Gram over a user axis: ``features (N, n, d) -> (N, d, d)``, one
-    kernel launch for the whole stack."""
+    kernel launch for the whole stack, the division by ``max(n_valid, 1)``
+    in its epilogue."""
     if n_valid is None:
         n_valid = torch.full((features.shape[0],), features.shape[1],
                              dtype=torch.float32, device=features.device)
-    n = torch.clamp_min(n_valid.to(torch.float32), 1.0)
-    return gram_ops.batched_gram_matrix(features) / n[:, None, None]
+    return gram_ops.batched_gram_matrix(features, n_valid)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,11 @@ cores (``csrc/assign_wave_tc.cu``: the d^2 axis split over blocks by
 second kernel that adds them in a fixed order and keeps the verdict),
 fp32 on the CUDA cores (``csrc/assign.cu``).  ``assign_looped`` is the
 per-arrival formulation, one ``assign_one`` launch for the whole wave,
-kept as the baseline.  CUDA tensors launch the kernels or raise; CPU
+kept as the baseline: each prototype's ``P_t [V_1 .. V_B]`` as one
+product, split over blocks of arrival groups x slices of P's rows by
+``one_plan``, per-slice partial sums in a workspace this wrapper
+allocates, then a second kernel that adds them in slice order, keeps the
+verdict and divides by k.  CUDA tensors launch the kernels or raise; CPU
 tensors take the plain versions in ``ref.py``.
 """
 from __future__ import annotations
@@ -27,8 +31,9 @@ import functools
 import torch
 
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.assign.ref import (assign_looped_plain,
-                                            assign_wave_plain)
+from repro_torch.kernels.assign.ref import (_cast, _masked,
+                                            assign_looped_plain,
+                                            assign_wave_plain, verdict)
 
 COMPUTE_DTYPES = ("fp32", "bf16")
 #: Stored table dtype -> the kernels' table_type code.
@@ -92,6 +97,132 @@ def wave_plan(b: int, t: int, d: int, sms: int) -> WavePlan:
             best = (cost, per, n_slices)
     _, per, n_slices = best
     return WavePlan(block_n, m_tiles, n_tiles, ksteps, per, n_slices)
+
+
+#: assign_one: columns of ``[V_1 .. V_B]`` a block, columns of d a step,
+#: the P ring's depths (deepest first) and its bytes a row, the slice
+#: heights it takes, and the rows of d a V chunk holds by compute dtype.
+ONE_COLS, ONE_STEP, ONE_ROW_BYTES = 128, 64, 288
+ONE_STAGES = (5, 4, 3)
+SLICE_ROWS = (32, 16)
+V_ROWS = {"bf16": 512, "fp32": 256}
+MAX_SMEM = 232448
+
+
+@dataclasses.dataclass(frozen=True)
+class OnePlan:
+    """How the assign_one kernel splits a wave: groups of ``group``
+    arrivals (``group k <= 128`` columns; for ``k > 128`` one arrival in
+    ``col_tiles`` tiles of 128 columns) x slices of ``slice_rows`` rows of
+    P, with V in chunks of ``v_rows`` rows of d and a ring of ``stages``
+    steps of P; ``smem`` a block."""
+    group: int
+    col_tiles: int
+    n_groups: int
+    slice_rows: int
+    n_slices: int
+    v_rows: int
+    stages: int
+    smem: int
+
+    @property
+    def n_parts(self) -> int:
+        """Partial sums an (arrival, prototype) pair has."""
+        return self.n_slices * self.col_tiles
+
+    @property
+    def blocks(self) -> int:
+        return self.n_groups * self.n_parts
+
+
+def one_smem_bytes(slice_rows: int, v_rows: int, stages: int,
+                   compute_dtype: str) -> int:
+    """V (128 columns x v_rows, padded), the P ring, under bf16 two
+    buffers of a step converted to bf16, the epilogue's products:
+    ``csrc/assign.cu::one_smem_bytes``."""
+    bf16 = compute_dtype == "bf16"
+    v = ONE_COLS * (v_rows + 8) * 2 if bf16 else ONE_COLS * (v_rows + 1) * 4
+    converted = 2 * slice_rows * (ONE_STEP + 8) * 2 if bf16 else 0
+    return (v + stages * slice_rows * ONE_ROW_BYTES + converted
+            + slice_rows * (ONE_COLS + 8) * 4)
+
+
+@functools.lru_cache(maxsize=256)
+def one_plan(b: int, t: int, d: int, k: int, sms: int,
+             compute_dtype: str = "bf16") -> OnePlan:
+    """The split for ``b`` arrivals, ``t`` prototypes, width ``d`` and
+    ``k`` columns on a card of ``sms`` multiprocessors, one block
+    resident on each: as many arrivals a block as 128 columns hold, then
+    the slice height that minimises waves of blocks x (a block's rows of
+    P, ``t h / 16``, + its V staging, 2), the tallest on a tie, and the
+    deepest P ring that fits the shared memory."""
+    if min(b, t, d, k, sms) < 1:
+        raise ValueError(f"bad wave (b, t, d, k, sms)={(b, t, d, k, sms)}")
+    if compute_dtype not in V_ROWS:
+        raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
+                         f"got {compute_dtype!r}")
+    if k <= ONE_COLS:
+        col_tiles, group = 1, min(b, ONE_COLS // k)
+    else:
+        col_tiles, group = _cdiv(k, ONE_COLS), 1
+    n_groups = _cdiv(b, group)
+    best = None
+    for h in SLICE_ROWS:
+        blocks = n_groups * col_tiles * _cdiv(d, h)
+        cost = _cdiv(blocks, sms) * (t * h // 16 + 2)
+        if best is None or cost < best[0]:
+            best = (cost, h)
+    h = best[1]
+    v_rows = min(V_ROWS[compute_dtype], _cdiv(d, ONE_STEP) * ONE_STEP)
+    stages = next(s for s in ONE_STAGES
+                  if one_smem_bytes(h, v_rows, s, compute_dtype) <= MAX_SMEM)
+    return OnePlan(group, col_tiles, n_groups, h, _cdiv(d, h), v_rows,
+                   stages, one_smem_bytes(h, v_rows, stages, compute_dtype))
+
+
+def one_block(plan: OnePlan, b: int, k: int, block: int
+              ) -> tuple[list[int], range, range]:
+    """Block ``block``'s share of the wave, as the kernel indexes it:
+    its arrivals, its rows of P (before the cut at d) and the channels of
+    V it reads (``range(k)`` unless ``k > 128``)."""
+    grp, part = block % plan.n_groups, block // plan.n_groups
+    ctile, slice_ = part % plan.col_tiles, part // plan.col_tiles
+    arrivals = list(range(grp * plan.group, min(b, (grp + 1) * plan.group)))
+    rows = range(slice_ * plan.slice_rows, (slice_ + 1) * plan.slice_rows)
+    chans = (range(k) if plan.col_tiles == 1 else
+             range(ctile * ONE_COLS, min(k, (ctile + 1) * ONE_COLS)))
+    return arrivals, rows, chans
+
+
+def assign_one_sliced_plain(v: torch.Tensor, table: torch.Tensor, mask,
+                            compute_dtype: str, plan: OnePlan
+                            ) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+    """The assign_one kernels' outputs ``(aff / k, labels, margin / k)``
+    from the plain per-block partial sums: ``W = cast(P_t) cast(V)`` in
+    fp32, each block's ``sum(W o V)`` over its rows and channels, the
+    partials of a pair added in slice order (``x = p_0 + p_1 + ...``),
+    then the mask, the verdict on the raw sums, and the division by k."""
+    b, d, k = v.shape
+    v32 = v.to(torch.float32)
+    w = torch.einsum("tde,bek->btdk", _cast(table, compute_dtype),
+                     _cast(v32, compute_dtype))
+    prod = w * v32[:, None]
+    parts = torch.zeros((plan.n_parts, b, table.shape[0]), dtype=torch.float32,
+                        device=v.device)
+    for block in range(plan.blocks):
+        arrivals, rows, chans = one_block(plan, b, k, block)
+        part = block // plan.n_groups
+        rows = range(rows.start, min(rows.stop, d))
+        parts[part, arrivals] = prod[arrivals][:, :, rows.start:rows.stop,
+                                               chans.start:chans.stop
+                                               ].sum(dim=(-2, -1))
+    aff = parts[0]
+    for p in range(1, plan.n_parts):
+        aff = aff + parts[p]
+    aff = _masked(aff, mask)
+    labels, margin = verdict(aff)
+    return aff / k, labels, margin / k
 
 
 def slice_entries(plan: WavePlan, d: int, s: int) -> torch.Tensor:
@@ -209,7 +340,8 @@ def assign_looped(v: torch.Tensor, protos: torch.Tensor, mask=None,
                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-arrival assignment, ``tr(V^T P_t V)`` prototype by prototype
     with a running best: the baseline beside ``assign``, same contract.
-    The table is scored as stored (no scales), as in the reference."""
+    The table is scored as stored (no scales), as in the reference; any
+    ``(d, k)`` (V is staged in chunks of d where it does not fit)."""
     _check(v, protos, compute_dtype)
     b, d, k = v.shape
     t = protos.shape[0]
@@ -224,15 +356,16 @@ def assign_looped(v: torch.Tensor, protos: torch.Tensor, mask=None,
     aff, labels, margin = _outputs(b, t, device)
     if b:
         lib = build.library()
-        if lib.repro_assign_one_smem(d, k) == 0:
-            raise ValueError(f"the assign_one kernel's V tile does not fit "
-                             f"the shared memory at d={d}, k={k}")
+        plan = one_plan(b, t, d, k, _sm_count(device), compute_dtype)
+        work = torch.empty((plan.n_parts, b, t), device=device,
+                           dtype=torch.float32)
         with torch.cuda.device(device):
             rc = lib.repro_assign_one(
                 v.data_ptr(), table.data_ptr(), _TABLE_TYPES[table.dtype],
-                _ptr(mask), aff.data_ptr(), labels.data_ptr(),
-                margin.data_ptr(), b, t, d, k, int(compute_dtype == "bf16"),
-                dispatch.stream_of(v))
+                _ptr(mask), work.data_ptr(), aff.data_ptr(),
+                labels.data_ptr(), margin.data_ptr(), b, t, d, k, plan.group,
+                plan.col_tiles, plan.slice_rows, plan.v_rows, plan.stages,
+                int(compute_dtype == "bf16"), dispatch.stream_of(v))
         build.check(rc, "assign_one")
         dispatch.count_launch("assign_one")
-    return aff / k, labels, margin / k
+    return aff, labels, margin

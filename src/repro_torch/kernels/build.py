@@ -34,7 +34,8 @@ LIB_NAME = "libkernels.so"
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 #: C entry point -> argtypes (every entry returns its cudaError_t).
 _SIGNATURES = {
-    "repro_gram": (_P, _P, _I, _I, _I, _P),
+    "repro_gram": (_P, _P, _P, _I, _I, _I, _P),
+    "repro_gram_plan": (_I, _P, _P),
     "repro_project_norms": (_P, _P, _P, _I, _I, _I, _I, _P),
     "repro_linkage_step": (_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _P),
     "repro_nn_chain": (_P, _I, _I, _I, _P, _P, _P, _P),
@@ -48,9 +49,9 @@ _SIGNATURES = {
                           _P),
     "repro_assign_wave_tc": (_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _I, _I, _P),
-    "repro_assign_one": (_P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _P),
-    "repro_assign_one_smem": (_I, _I),
+    "repro_assign_one": (_P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, _I, _I, _I, _I, _P),
+    "repro_assign_one_smem": (_I, _I, _I, _I),
     "repro_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _I,
                               _P),
     "repro_flash_attention_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "repro_error_string": (_I,),
 }
 _RESTYPES = {"repro_nn_chain_smem": ctypes.c_int64,
+             "repro_gram_plan": ctypes.c_int64,
              "repro_featurize_gram_smem": ctypes.c_int64,
              "repro_gram_project_smem": ctypes.c_int64,
              "repro_assign_one_smem": ctypes.c_int64,

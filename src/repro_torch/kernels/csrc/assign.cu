@@ -46,20 +46,43 @@
 // a_t = sum((P_t V) o V), with P_t V from inputs cast to the compute
 // type and summed in fp32, and V in fp32 in the final product.  The
 // reference runs one grid launch per arrival (lax.map); here one launch
-// covers the wave, one 256-thread block per arrival.
-//   Bound: 2 B T d^2 k operations (0.032 ms at B = 128, T = 4, d = 512,
-//   k = 8 on the fp32 cores) against s T d^2 + 4 B d k bytes.
-//   Design: the block stages V in shared memory twice (transposed and
-//   cast to the compute type for P_t V, row-major in fp32 for the final
-//   product), then walks the prototypes in order.  A warp owns 4 rows
-//   of P_t at a time; each lane reads a strided slice of the 4 rows
-//   (coalesced), keeps 4 x 8 partial sums of P_t V in registers, and
-//   folds them into its affinity partial with V in fp32 (the same sum in
-//   another order).  One block reduction per prototype; thread 0 keeps
-//   the running (best, second, argmax) with strict '>'.
+// covers the wave.
+//   Bound: 2 B T d^2 k operations (0.0022 ms at B = 128, T = 4, d = 512,
+//   k = 8 on the bf16 tensor cores) against s T d^2 + 4 B d k bytes.
+//   Design: the per-arrival form, batched across arrivals: for a
+//   prototype t, every arrival's P_t V_b is one product P_t [V_1 .. V_B]
+//   (d x d times d x B k).  A block owns one group of arrivals (128
+//   columns of [V_1 .. V_B]: 128 / k arrivals, or one arrival's k columns
+//   in tiles of 128) x one slice of 16 or 32 rows of P, and walks the
+//   live prototypes (kernels/assign/ops.py::one_plan picks the group and
+//   the slice so that the serving wave fills the card).  Its V sits in
+//   shared memory in the compute type, transposed (n-major, d contiguous),
+//   in chunks of 512 rows of d under bf16 (256 under fp32), staged once
+//   where d fits one chunk and again for each prototype where it does not.
+//   The P rows stream through a cp.async ring of 3 to 5 steps (the plan's)
+//   in their stored type, 64 columns of d a step.  bf16 runs on mma.sync
+//   m16n8k16: each landed step is converted to bf16 once, by all threads
+//   and one step ahead of its products (f32 by RN, int8 exactly), and the
+//   warps read fragments of it and of V with ldmatrix; each of 16 warps
+//   owns 8 columns x the slice (the steps are short chains of dependent
+//   phases, so the SM needs many warps); the fp32 accumulators fold into a
+//   register sum every 128 columns of d.  fp32 runs on the same grid with
+//   fp32 FMA on the CUDA cores (a thread 1 or 2 rows x 4 columns).  V
+//   in fp32 at a thread's W entries stays in registers; at the end of a
+//   prototype each W entry is multiplied by it into shared memory, and
+//   one warp per arrival sums its slice x k products in a fixed order
+//   into the wrapper's workspace, partial[slice][b][t].
+//   A second kernel, one warp per arrival, adds the partials in slice
+//   order, applies the mask, keeps the verdict (strict '>' per lane, then
+//   the lanes merged preferring the lower index) on the raw sums, and
+//   writes aff / k and margin / k.  No atomics: two runs give the same
+//   bits.
 #include <cuda_bf16.h>
 
+#include <type_traits>
+
 #include "common.cuh"
+#include "mma.cuh"
 #include "verdict.cuh"
 
 namespace {
@@ -70,9 +93,14 @@ constexpr int kWaveThreads = kGroupThreads * kGroups;
 constexpr int kMaxArrivals = 8;           // arrivals per wave block, at most
 constexpr int kProtos = 32;               // prototypes per tile, at most
 constexpr int kChunk = 128;               // S entries per chunk, 4 a lane
-constexpr int kOneThreads = 256;
-constexpr int kOneRows = 4;               // rows of P_t per warp step
-constexpr int kOneCols = 8;               // columns of V per pass
+constexpr int kOneThreads = 512;          // 16 warps
+constexpr int kOneCols = 128;             // columns of [V_1 .. V_B] a block
+constexpr int kOneStep = 64;              // columns of d a step
+constexpr int kOneMaxStages = 5;          // P ring depth, at most
+constexpr int kOneFold = 2;               // steps between folds (bf16)
+constexpr int kPRowBytes = 288;           // a ring row: 64 f32 + 32 bytes
+constexpr int kPbLd = kOneStep + 8;       // a converted P row (bf16)
+constexpr int kELd = kOneCols + 8;        // epilogue product rows (fp32)
 constexpr int kMaxSmem = 232448;          // opt-in shared memory of a block
 
 constexpr int kGroupWarps = kGroupThreads / 32;
@@ -94,13 +122,6 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_float(int8_t x) { return (float)x; }
-
-// The value as the product sees it: fp32, or rounded to bf16 (values
-// that are already bf16 or int8 are exact in bf16).
-template <bool BF16>
-__device__ __forceinline__ float to_compute(float x) {
-  return BF16 ? __bfloat162float(__float2bfloat16_rn(x)) : x;
-}
 
 // Named barrier for one 256-thread group of a wave block.
 __device__ __forceinline__ void group_sync(int group) {
@@ -322,94 +343,404 @@ assign_wave_kernel(const float* __restrict__ v, const T* __restrict__ table,
   }
 }
 
-template <typename T, bool BF16>
-__global__ void __launch_bounds__(kOneThreads)
-assign_one_kernel(const float* __restrict__ v, const T* __restrict__ table,
-                  const float* __restrict__ mask, float* __restrict__ aff,
-                  int* __restrict__ labels, float* __restrict__ margin,
-                  int n_protos, int d, int k) {
-  extern __shared__ __align__(16) float one_smem[];
-  float* vt = one_smem;                 // [k][d]: V^T, compute type
-  float* vf = one_smem + (int64_t)k * d;  // [d][k]: V in fp32
-  __shared__ float red[kOneThreads / 32];
+// -- assign_one -----------------------------------------------------------
 
-  const int64_t b = blockIdx.x;
-  const float* vb = v + b * d * k;
+// A staged P row, in entries of T: 64 plus 16 or 32 bytes, so that rows
+// start 16-byte aligned for the copies and on shifted banks.
+template <typename T>
+__host__ __device__ constexpr int p_ld() {
+  return kOneStep + (sizeof(T) == 4 ? 8 : sizeof(T) == 2 ? 8 : 16);
+}
+
+// Eight consecutive entries of a staged P row as bf16 (RN from f32, as
+// stored, int8 exactly), low index first.
+__device__ __forceinline__ uint4 bf16x8(const float* p) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  const float4 y = *reinterpret_cast<const float4*>(p + 4);
+  return make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w),
+                    pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+}
+__device__ __forceinline__ uint4 bf16x8(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
+__device__ __forceinline__ uint4 bf16x8(const int8_t* p) {
+  const char4 x = *reinterpret_cast<const char4*>(p);
+  const char4 y = *reinterpret_cast<const char4*>(p + 4);
+  return make_uint4(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w),
+                    pack_bf16(y.x, y.y), pack_bf16(y.z, y.w));
+}
+
+// V in shared memory: bf16 under bf16 compute, fp32 under fp32, rows of
+// v_rows entries plus padding.
+template <bool BF16>
+struct OneV {
+  using type = float;
+  static constexpr int pad = 1;
+  static __device__ __forceinline__ float make(float x) { return x; }
+};
+template <>
+struct OneV<true> {
+  using type = __nv_bfloat16;
+  static constexpr int pad = 8;
+  static __device__ __forceinline__ __nv_bfloat16 make(float x) {
+    return __float2bfloat16_rn(x);
+  }
+};
+
+__host__ __device__ inline int64_t one_smem_bytes(int slice_rows, int v_rows,
+                                                  int stages, bool bf16) {
+  const int64_t v = bf16 ? (int64_t)kOneCols * (v_rows + 8) * 2
+                         : (int64_t)kOneCols * (v_rows + 1) * 4;
+  const int64_t converted = bf16 ? 2 * (int64_t)slice_rows * kPbLd * 2 : 0;
+  return v + (int64_t)stages * slice_rows * kPRowBytes + converted +
+         (int64_t)slice_rows * kELd * 4;
+}
+
+// The first live prototype from t on (n_protos when none is left).
+__device__ __forceinline__ int next_live(const float* __restrict__ mask,
+                                         int t, int n_protos) {
+  while (t < n_protos && mask != nullptr && !(mask[t] > 0.5f)) ++t;
+  return t;
+}
+
+// Where column c (0 .. 127) of a block's [V_1 .. V_B] tile comes from:
+// arrival b0 + *a, channel *ch; false for a padding column.
+__device__ __forceinline__ bool one_column(int c, int k, int n_arr,
+                                           int col_tiles, int ctile, int* a,
+                                           int* ch) {
+  if (col_tiles == 1) {
+    *a = c / k;
+    *ch = c % k;
+    return *a < n_arr;
+  }
+  *a = 0;
+  *ch = ctile * kOneCols + c;
+  return *ch < k;
+}
+
+template <typename T, bool BF16, int MT>
+__global__ void __launch_bounds__(kOneThreads, 1)
+assign_one_kernel(const float* __restrict__ v, const T* __restrict__ table,
+                  const float* __restrict__ mask, float* __restrict__ partial,
+                  int n_arrivals, int n_protos, int d, int k, int group,
+                  int col_tiles, int n_groups, int v_rows, int stages,
+                  int vec) {
+  constexpr int H = 16 * MT;  // rows of P a slice
+  constexpr int ld = p_ld<T>();
+  using VT = typename OneV<BF16>::type;
+  extern __shared__ __align__(16) unsigned char one_smem[];
+  const int vld = v_rows + OneV<BF16>::pad;
+  VT* vs = reinterpret_cast<VT*>(one_smem);
+  unsigned char* ring = one_smem + (int64_t)kOneCols * vld * sizeof(VT);
+  // bf16: two buffers of a step's P rows converted to bf16, [H][kPbLd].
+  __nv_bfloat16* pb =
+      reinterpret_cast<__nv_bfloat16*>(ring + stages * H * kPRowBytes);
+  float* ebuf = reinterpret_cast<float*>(
+      ring + stages * H * kPRowBytes + (BF16 ? 2 * H * kPbLd * 2 : 0));
+
+  const int grp = blockIdx.x % n_groups;
+  const int part = blockIdx.x / n_groups;
+  const int ctile = part % col_tiles;
+  const int r0 = (part / col_tiles) * H;
+  const int b0 = grp * group;
+  const int n_arr = col_tiles == 1 ? min(group, n_arrivals - b0) : 1;
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
   const int64_t d2 = (int64_t)d * d;
-  for (int e = tid; e < d * k; e += kOneThreads) {
-    const float x = vb[e];
-    vf[e] = x;
-    vt[(e % k) * d + e / k] = to_compute<BF16>(x);
-  }
-  __syncthreads();
+  const int ksteps = repro_ceil_div(d, kOneStep);
+  const int chunk_steps = v_rows / kOneStep;
+  const int n_chunks = repro_ceil_div(ksteps, chunk_steps);
 
-  Verdict verdict;  // used by thread 0
-  for (int t = 0; t < n_protos; ++t) {
-    float a = -INFINITY;
-    if (mask == nullptr || mask[t] > 0.5f) {  // uniform across the block
-      const T* pt = table + t * d2;
-      float part = 0.f;
-      for (int i0 = warp * kOneRows; i0 < d;
-           i0 += (kOneThreads / 32) * kOneRows) {
-        for (int c0 = 0; c0 < k; c0 += kOneCols) {
-          float w[kOneRows][kOneCols];
+  // Step ks of prototype t: P rows r0 .. r0 + H - 1, columns 64 ks ..
+  // + 63, in the stored type; zero past d.
+  auto stage_p = [&](int slot, int t, int ks) {
+    T* dst = reinterpret_cast<T*>(ring + slot * H * kPRowBytes);
+    const T* src = table + t * d2;
+    const int c0 = ks * kOneStep;
+    if (vec & 1) {
+      constexpr int per = 16 / (int)sizeof(T);  // entries a copy
+      constexpr int copies = kOneStep / per;    // copies a row
+      for (int e = tid; e < H * copies; e += kOneThreads) {
+        const int r = e / copies;
+        const int col = c0 + (e % copies) * per;
+        const int row = r0 + r;
+        const int bytes =
+            row < d && col < d ? min(16, (d - col) * (int)sizeof(T)) : 0;
+        cp_async16_n(dst + r * ld + (e % copies) * per,
+                     bytes ? src + (int64_t)row * d + col : src, bytes);
+      }
+    } else {
+      for (int e = tid; e < H * kOneStep; e += kOneThreads) {
+        const int r = e / kOneStep;
+        const int col = c0 + e % kOneStep;
+        const int row = r0 + r;
+        dst[r * ld + e % kOneStep] =
+            row < d && col < d ? src[(int64_t)row * d + col] : T{};
+      }
+    }
+  };
+  // Rows v_rows ch .. of V for the block's 128 columns, in the compute
+  // type, transposed: vs[c][i].  V is read in its own order (the chunk's
+  // rows of an arrival are contiguous), W consecutive channels a load
+  // (float4 where k % 4 == 0 and V is 16-byte aligned), eight loads in
+  // flight a thread; padding columns and rows past d are zero.
+  auto stage_v_w = [&](int ch, auto per_load) {
+    constexpr int W = decltype(per_load)::value;
+    const int i0 = ch * v_rows;
+    const int rows = min(v_rows, d - i0);
+    const bool tiled = col_tiles > 1;
+    const int width = tiled ? kOneCols : k;  // entries a source row
+    const int loads = (tiled ? rows : n_arr * rows) * width / W;
+    for (int f0 = 0; f0 < loads; f0 += 8 * kOneThreads) {
+      float x[8][W];
+      int at[8];
 #pragma unroll
-          for (int r = 0; r < kOneRows; ++r)
-#pragma unroll
-            for (int c = 0; c < kOneCols; ++c) w[r][c] = 0.f;
-#pragma unroll 4
-          for (int j = lane; j < d; j += 32) {
-            float pv[kOneRows];
-#pragma unroll
-            for (int r = 0; r < kOneRows; ++r)
-              pv[r] = i0 + r < d
-                          ? to_compute<BF16>(to_float(pt[(int64_t)(i0 + r) * d + j]))
-                          : 0.f;
-#pragma unroll
-            for (int c = 0; c < kOneCols; ++c) {
-              if (c0 + c < k) {
-                const float x = vt[(c0 + c) * d + j];
-#pragma unroll
-                for (int r = 0; r < kOneRows; ++r)
-                  w[r][c] = fmaf(pv[r], x, w[r][c]);
-              }
-            }
-          }
-#pragma unroll
-          for (int r = 0; r < kOneRows; ++r)
-#pragma unroll
-            for (int c = 0; c < kOneCols; ++c)
-              if (i0 + r < d && c0 + c < k)
-                part = fmaf(w[r][c], vf[(i0 + r) * k + c0 + c], part);
+      for (int u = 0; u < 8; ++u) {
+        const int f = (f0 + u * kOneThreads + tid) * W;
+        const int r = f / width;
+        const int a = tiled ? 0 : r / rows;
+        const int i = tiled ? r : r % rows;
+        const int cc = f % width;
+        const int chn = tiled ? ctile * kOneCols + cc : cc;
+        const bool live = f < loads * W && chn < k;
+        at[u] = f < loads * W ? (tiled ? cc : a * k + cc) * vld + i : -1;
+        const float* src = v + ((int64_t)(b0 + a) * d + i0 + i) * k + chn;
+        if constexpr (W == 4) {
+          const float4 q = live ? __ldg(reinterpret_cast<const float4*>(src))
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+          x[u][0] = q.x;
+          x[u][1] = q.y;
+          x[u][2] = q.z;
+          x[u][3] = q.w;
+        } else {
+          x[u][0] = live ? __ldg(src) : 0.f;
         }
       }
 #pragma unroll
-      for (int off = 16; off > 0; off /= 2)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) red[warp] = part;
-      __syncthreads();
-      if (tid == 0) {
-        a = 0.f;
-        for (int w = 0; w < kOneThreads / 32; ++w) a += red[w];
+      for (int u = 0; u < 8; ++u)
+        if (at[u] >= 0)
+#pragma unroll
+          for (int w = 0; w < W; ++w)
+            vs[at[u] + w * vld] = OneV<BF16>::make(x[u][w]);
+    }
+    const int live_cols = tiled ? kOneCols : n_arr * k;
+    for (int e = tid; e < (kOneCols - live_cols) * v_rows; e += kOneThreads)
+      vs[(live_cols + e / v_rows) * vld + e % v_rows] = OneV<BF16>::make(0.f);
+    const int tail = v_rows - rows;
+    for (int e = tid; e < live_cols * tail; e += kOneThreads)
+      vs[(e / tail) * vld + rows + e % tail] = OneV<BF16>::make(0.f);
+  };
+  auto stage_v = [&](int ch) {
+    if (vec & 2)
+      stage_v_w(ch, std::integral_constant<int, 4>());
+    else
+      stage_v_w(ch, std::integral_constant<int, 1>());
+  };
+
+  // A thread's W entries, MT groups of 4: bf16, a warp owns columns
+  // 8 warp .. + 7 (one n8 tile) x the slice's MT m16 tiles, group mt an
+  // m16n8 fragment; fp32, warp w owns rows MT w .. and lane l columns l,
+  // l + 32, l + 64, l + 96 (group i: row MT w + i).  Sixteen warps keep
+  // the SM busy across the steps' short dependent phases.
+  constexpr int kAcc = MT;
+  auto entry_at = [&](int i, int e, int* row, int* col) {
+    if constexpr (BF16) {
+      *row = i * 16 + lane / 4 + 8 * (e / 2);
+      *col = 8 * warp + 2 * (lane % 4) + e % 2;
+    } else {
+      *row = kAcc * warp + i;
+      *col = lane + 32 * e;
+    }
+  };
+  float acc[kAcc][4], sum[kAcc][4], vf[kAcc][4];
+  // V in fp32 at this thread's entries, for the epilogue of every
+  // prototype (0 past d and in padding columns).
+#pragma unroll
+  for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      acc[i][e] = sum[i][e] = 0.f;
+      int row, c, a, cc;
+      entry_at(i, e, &row, &c);
+      vf[i][e] = r0 + row < d && one_column(c, k, n_arr, col_tiles, ctile,
+                                             &a, &cc)
+                     ? __ldg(v + ((int64_t)(b0 + a) * d + r0 + row) * k + cc)
+                     : 0.f;
+    }
+
+  int tc = next_live(mask, 0, n_protos);  // the prototype computed
+  int tl = tc, kl = 0;                    // the step loaded next
+  auto advance = [&]() {
+    if (++kl == ksteps) {
+      kl = 0;
+      tl = next_live(mask, tl + 1, n_protos);
+    }
+  };
+  for (int s = 0; s < stages - 1; ++s) {
+    if (tl < n_protos) {
+      stage_p(s, tl, kl);
+      advance();
+    }
+    cp_async_commit();
+  }
+  // bf16: all threads convert a landed step's P rows to bf16 once, one
+  // step ahead of its products (two buffers), which then read them with
+  // ldmatrix.
+  auto convert = [&](int slot, int buf) {
+    const T* src = reinterpret_cast<const T*>(ring + slot * H * kPRowBytes);
+    __nv_bfloat16* dst = pb + buf * H * kPbLd;
+    for (int e = tid; e < H * kOneStep / 8; e += kOneThreads) {
+      const int r = e / (kOneStep / 8);
+      const int c = e % (kOneStep / 8) * 8;
+      *reinterpret_cast<uint4*>(dst + r * kPbLd + c) = bf16x8(src + r * ld + c);
+    }
+  };
+  if (BF16 && tc < n_protos) {
+    cp_async_wait_n(stages - 2);  // step 0
+    __syncthreads();
+    convert(0, 0);
+  }
+  int ks = 0, q = 0;
+  bool v_staged = false;
+  while (tc < n_protos) {
+    if (ks % chunk_steps == 0 && (n_chunks > 1 || !v_staged)) {
+      __syncthreads();  // every warp is done with the previous chunk
+      stage_v(ks / chunk_steps);
+      v_staged = true;
+    }
+    // bf16: step q + 1 has landed (step q was converted last time round);
+    // fp32: step q has landed.
+    cp_async_wait_n(BF16 ? stages - 3 : stages - 2);
+    __syncthreads();
+    // The slot of step q - 1, which every warp has finished.
+    if (tl < n_protos) {
+      stage_p((q + stages - 1) % stages, tl, kl);
+      advance();
+    }
+    cp_async_commit();
+
+    const int kv0 = (ks % chunk_steps) * kOneStep;
+    if constexpr (BF16) {
+      // The next step (if any) into the other buffer, whose products
+      // finished before the barrier.
+      convert((q + 1) % stages, (q + 1) % 2);
+      const __nv_bfloat16* pa = pb + (q % 2) * H * kPbLd;
+#pragma unroll
+      for (int j = 0; j < kOneStep / 16; j += 2) {
+        // The warp's n8 tile at k16 steps j and j + 1, two k halves each.
+        uint32_t b[4];
+        ldmatrix_x4(b, vs + (8 * warp + lane % 8) * vld + kv0 + 16 * j +
+                           8 * (lane / 8));
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            uint32_t a[4];
+            ldmatrix_x4(a, pa + (mt * 16 + lane % 16) * kPbLd +
+                               16 * (j + jj) + 8 * (lane / 16));
+            mma_bf16(acc[mt], a, b[2 * jj], b[2 * jj + 1]);
+          }
+        }
       }
-      __syncthreads();  // red is free for the next prototype
+    } else {
+      const T* ps =
+          reinterpret_cast<const T*>(ring + (q % stages) * H * kPRowBytes);
+      const T* pr = ps + kAcc * warp * ld;
+      const float* vr = reinterpret_cast<const float*>(vs) + lane * vld + kv0;
+#pragma unroll 4
+      for (int kk = 0; kk < kOneStep; ++kk) {
+        float x[4], p[kAcc];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) x[e] = vr[32 * e * vld + kk];
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i) p[i] = to_float(pr[i * ld + kk]);
+#pragma unroll
+        for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][e] = fmaf(p[i], x[e], acc[i][e]);
+      }
     }
-    if (tid == 0) {
-      aff[b * n_protos + t] = a;
-      verdict.take(a, t);
+    ++ks;
+    ++q;
+    // The tensor cores' fp32 sums truncate: fold a chain of at most
+    // kOneFold steps (8 mma k-steps) into the IEEE register sum.
+    if (ks == ksteps || (BF16 && ks % kOneFold == 0)) {
+#pragma unroll
+      for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          sum[i][e] += acc[i][e];
+          acc[i][e] = 0.f;
+        }
     }
+    if (ks < ksteps) continue;
+
+    // Prototype tc is done: its W times V in fp32 into ebuf, then one
+    // warp an arrival sums the slice's products.
+#pragma unroll
+    for (int i = 0; i < kAcc; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int row, c;
+        entry_at(i, e, &row, &c);
+        ebuf[row * kELd + c] = sum[i][e] * vf[i][e];
+        sum[i][e] = 0.f;
+      }
+    __syncthreads();
+    const int width = col_tiles == 1 ? k : kOneCols;
+    for (int a = warp; a < n_arr; a += kOneThreads / 32) {
+      float s = 0.f;
+      for (int e = lane; e < H * width; e += 32)
+        s += ebuf[(e / width) * kELd + (col_tiles == 1 ? a * k : 0) +
+                  e % width];
+#pragma unroll
+      for (int off = 16; off > 0; off /= 2)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      if (lane == 0)
+        partial[((int64_t)part * n_arrivals + b0 + a) * n_protos + tc] = s;
+    }
+    ks = 0;
+    tc = next_live(mask, tc + 1, n_protos);
   }
-  if (tid == 0) {
-    labels[b] = verdict.arg;
-    margin[b] = verdict.margin(n_protos);
-  }
+  cp_async_wait<0>();
 }
 
-int64_t one_smem_bytes(int d, int k) {
-  return 2 * (int64_t)d * k * (int64_t)sizeof(float);
+// One warp an arrival: the partials of each live prototype added in slice
+// order, the mask, the verdict on the raw sums, then aff / k and
+// margin / k.
+__global__ void __launch_bounds__(256)
+assign_one_sum_kernel(const float* __restrict__ partial, int n_parts,
+                      const float* __restrict__ mask, float* __restrict__ aff,
+                      int* __restrict__ labels, float* __restrict__ margin,
+                      int n_arrivals, int n_protos, int k) {
+  const int b = blockIdx.x * 8 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (b >= n_arrivals) return;
+  const int64_t plane = (int64_t)n_arrivals * n_protos;
+  const float kf = (float)k;
+  Verdict verdict;
+  for (int t = lane; t < n_protos; t += 32) {
+    float x = -INFINITY;
+    if (mask == nullptr || mask[t] > 0.5f) {
+      const float* p = partial + (int64_t)b * n_protos + t;
+      x = p[0];
+      for (int s = 1; s < n_parts; ++s) x += p[s * plane];
+    }
+    aff[(int64_t)b * n_protos + t] = __fdiv_rn(x, kf);
+    verdict.take(x, t);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) {
+    const float ob = __shfl_xor_sync(0xffffffffu, verdict.best, off);
+    const float os = __shfl_xor_sync(0xffffffffu, verdict.second, off);
+    const int oa = __shfl_xor_sync(0xffffffffu, verdict.arg, off);
+    verdict.merge(ob, os, oa);
+  }
+  if (lane == 0) {
+    labels[b] = verdict.arg;
+    margin[b] = __fdiv_rn(verdict.margin(n_protos), kf);
+  }
 }
 
 // Arrivals per block: 8 where the wave fills the card with 8-arrival
@@ -466,19 +797,69 @@ int launch_wave(const float* v, const void* table, const float* scales,
                                n_arrivals, n_protos, d, k, stream);
 }
 
-template <typename T, bool BF16>
-int launch_one(const float* v, const void* table, const float* mask,
-               float* aff, int* labels, float* margin, int n_arrivals,
-               int n_protos, int d, int k, cudaStream_t stream) {
-  const int smem = (int)one_smem_bytes(d, k);
-  auto kernel = assign_one_kernel<T, BF16>;
+template <typename T, bool BF16, int MT>
+int launch_one_mt(const float* v, const void* table, const float* mask,
+                  float* work, int n_arrivals, int n_protos, int d, int k,
+                  int group, int col_tiles, int v_rows, int stages,
+                  cudaStream_t stream) {
+  const int64_t smem = one_smem_bytes(16 * MT, v_rows, stages, BF16);
+  auto kernel = assign_one_kernel<T, BF16, MT>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(unsigned)n_arrivals, kOneThreads, (size_t)smem, stream>>>(
-      v, static_cast<const T*>(table), mask, aff, labels, margin, n_protos,
-      d, k);
+  const int n_groups = repro_ceil_div(n_arrivals, group);
+  const int64_t blocks =
+      (int64_t)n_groups * col_tiles * repro_ceil_div(d, 16 * MT);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  // Bit 0: P rows take 16-byte copies; bit 1: V takes 16-byte loads.
+  const int vec = (((int64_t)d * sizeof(T)) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(table) % 16 == 0) |
+                  (k % 4 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0) << 1;
+  kernel<<<(unsigned)blocks, kOneThreads, (size_t)smem, stream>>>(
+      v, static_cast<const T*>(table), mask, work, n_arrivals, n_protos, d,
+      k, group, col_tiles, n_groups, v_rows, stages, vec);
   return (int)cudaGetLastError();
+}
+
+template <typename T, bool BF16>
+int launch_one(int slice_rows, const float* v, const void* table,
+               const float* mask, float* work, int n_arrivals, int n_protos,
+               int d, int k, int group, int col_tiles, int v_rows,
+               int stages, cudaStream_t s) {
+  switch (slice_rows) {
+    case 16:
+      return launch_one_mt<T, BF16, 1>(v, table, mask, work, n_arrivals,
+                                       n_protos, d, k, group, col_tiles,
+                                       v_rows, stages, s);
+    case 32:
+      return launch_one_mt<T, BF16, 2>(v, table, mask, work, n_arrivals,
+                                       n_protos, d, k, group, col_tiles,
+                                       v_rows, stages, s);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool BF16>
+int one_by_table(int table_type, int slice_rows, const float* v,
+                 const void* table, const float* mask, float* work,
+                 int n_arrivals, int n_protos, int d, int k, int group,
+                 int col_tiles, int v_rows, int stages, cudaStream_t s) {
+  switch (table_type) {
+    case kF32:
+      return launch_one<float, BF16>(slice_rows, v, table, mask, work,
+                                     n_arrivals, n_protos, d, k, group,
+                                     col_tiles, v_rows, stages, s);
+    case kBF16:
+      return launch_one<__nv_bfloat16, BF16>(slice_rows, v, table, mask,
+                                             work, n_arrivals, n_protos, d, k,
+                                             group, col_tiles, v_rows, stages,
+                                             s);
+    case kI8:
+      return launch_one<int8_t, BF16>(slice_rows, v, table, mask, work,
+                                      n_arrivals, n_protos, d, k, group,
+                                      col_tiles, v_rows, stages, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 int wave_by_table(int table_type, const float* v, const void* table,
@@ -500,31 +881,16 @@ int wave_by_table(int table_type, const float* v, const void* table,
   return (int)cudaErrorInvalidValue;
 }
 
-template <bool BF16>
-int one_by_table(int table_type, const float* v, const void* table,
-                 const float* mask, float* aff, int* labels, float* margin,
-                 int n_arrivals, int n_protos, int d, int k, cudaStream_t s) {
-  switch (table_type) {
-    case kF32:
-      return launch_one<float, BF16>(v, table, mask, aff, labels, margin,
-                                     n_arrivals, n_protos, d, k, s);
-    case kBF16:
-      return launch_one<__nv_bfloat16, BF16>(v, table, mask, aff, labels,
-                                             margin, n_arrivals, n_protos, d,
-                                             k, s);
-    case kI8:
-      return launch_one<int8_t, BF16>(v, table, mask, aff, labels, margin,
-                                      n_arrivals, n_protos, d, k, s);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// Shared memory the per-arrival kernel needs at (d, k); 0 when it does
-// not fit one block.
-REPRO_EXPORT int64_t repro_assign_one_smem(int d, int k) {
-  const int64_t bytes = one_smem_bytes(d, k);
+// Shared memory of an assign_one block with slices of slice_rows rows of
+// P, V chunks of v_rows rows of d and a P ring of `stages` steps
+// (kernels/assign/ops.py::one_plan computes the same); 0 when it does
+// not fit a block.
+REPRO_EXPORT int64_t repro_assign_one_smem(int slice_rows, int v_rows,
+                                           int stages, int bf16) {
+  const int64_t bytes =
+      one_smem_bytes(slice_rows, v_rows, stages, bf16 != 0);
   return bytes <= kMaxSmem ? bytes : 0;
 }
 
@@ -545,19 +911,42 @@ REPRO_EXPORT int repro_assign_wave(const float* v, const void* table,
                        (cudaStream_t)stream);
 }
 
-// The per-arrival form, one block per arrival, no scales; same layouts.
+// The per-arrival form, no scales; same layouts, and a workspace
+// (n_slices x col_tiles, B, T) fp32 for the partial sums.  Blocks: groups
+// of `group` arrivals (group k <= 128; or one arrival in col_tiles tiles
+// of 128 columns where k > 128) x slices of slice_rows (16 or 32)
+// rows of P; V in chunks of v_rows (a multiple of 64) rows of d; a P ring
+// of `stages` (3 to 5) steps.  Writes
+// aff / k, labels and margin / k, with compute-type product inputs and
+// fp32 sums.
 REPRO_EXPORT int repro_assign_one(const float* v, const void* table,
                                   int table_type, const float* mask,
-                                  float* aff, int* labels, float* margin,
-                                  int n_arrivals, int n_protos, int d, int k,
-                                  int bf16, void* stream) {
+                                  float* workspace, float* aff, int* labels,
+                                  float* margin, int n_arrivals,
+                                  int n_protos, int d, int k, int group,
+                                  int col_tiles, int slice_rows, int v_rows,
+                                  int stages, int bf16, void* stream) {
   if (n_arrivals <= 0) return 0;
-  if (n_protos <= 0 || d <= 0 || k <= 0 || one_smem_bytes(d, k) > kMaxSmem)
+  const bool tiles_ok = k <= kOneCols
+                            ? col_tiles == 1 && group >= 1 &&
+                                  group * k <= kOneCols
+                            : group == 1 &&
+                                  col_tiles == repro_ceil_div(k, kOneCols);
+  if (n_protos <= 0 || d <= 0 || k <= 0 || !tiles_ok || v_rows <= 0 ||
+      v_rows % kOneStep || stages < 3 || stages > kOneMaxStages ||
+      repro_assign_one_smem(slice_rows, v_rows, stages, bf16) == 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (bf16)
-    return one_by_table<true>(table_type, v, table, mask, aff, labels, margin,
-                              n_arrivals, n_protos, d, k, s);
-  return one_by_table<false>(table_type, v, table, mask, aff, labels, margin,
-                             n_arrivals, n_protos, d, k, s);
+  const int rc =
+      bf16 ? one_by_table<true>(table_type, slice_rows, v, table, mask,
+                                workspace, n_arrivals, n_protos, d, k, group,
+                                col_tiles, v_rows, stages, s)
+           : one_by_table<false>(table_type, slice_rows, v, table, mask,
+                                 workspace, n_arrivals, n_protos, d, k, group,
+                                 col_tiles, v_rows, stages, s);
+  if (rc) return rc;
+  const int n_parts = repro_ceil_div(d, slice_rows) * col_tiles;
+  assign_one_sum_kernel<<<repro_ceil_div(n_arrivals, 8), 256, 0, s>>>(
+      workspace, n_parts, mask, aff, labels, margin, n_arrivals, n_protos, k);
+  return (int)cudaGetLastError();
 }

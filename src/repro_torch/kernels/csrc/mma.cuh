@@ -25,14 +25,21 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+// The first `bytes` (0 to 16) of 16 bytes from global to shared memory,
+// asynchronously (L2 only); the rest of the 16 is zero-filled.
+__device__ __forceinline__ void cp_async16_n(void* dst, const void* src,
+                                             int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
 // 16 bytes from global to shared memory, asynchronously (L2 only);
 // zero-filled, and nothing read, where `live` is false.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(live ? 16 : 0)
-               : "memory");
+  cp_async16_n(dst, src, live ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {

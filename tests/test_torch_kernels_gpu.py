@@ -24,7 +24,14 @@ places, and equal labels wherever the plain margin exceeds the
 tolerance.  At d = 512 bf16 and fp32 differ by far more than the bf16
 tolerance, so a kernel that ignored the compute dtype fails.  The bf16
 wave kernel (tensor cores, split over the d^2 axis) adds its partial
-sums in a fixed order, so two runs on the same inputs are bit-equal.
+sums in a fixed order, so two runs on the same inputs are bit-equal; so
+does assign_one (split over arrival groups x slices of P, bf16 on the
+tensor cores), held over every table and compute dtype, T in {1, 4,
+33}, B in {1, 5, 128} and (d, k) up to (1024, 64).  The gram kernel
+(3xTF32 on wgmma, one triangle of tile pairs) is held on both load
+routes (TMA, and 4-byte cp.async where 4 d % 16 != 0) to 1e-5 of the
+largest entry and to 1/8 of the 1xTF32 emulation's error, symmetric bit
+for bit, with its n_valid divisor equal to the division after it.
 
 The LM kernels: flash in fp32 agrees with its plain version to 1e-5 of
 the largest output (another summation order; an H100 measured 1.3e-6);
@@ -107,6 +114,38 @@ class TestKernelsOnCard:
             out = batched_gram_matrix(x)
             assert dispatch.LAUNCHES["gram"] == before + 1
             close(out, gram_ref(x))
+
+    @pytest.mark.parametrize("shape", [(3, 17, 5), (8, 37, 130),
+                                       (16, 300, 784), (2, 64, 128),
+                                       (5, 1, 257), (2, 0, 64)])
+    def test_gram_tensor_cores(self, cuda_device, shape):
+        """Both load routes (TMA where 4 d % 16 == 0, 4-byte cp.async
+        else), ragged n and d: 1e-5 of the largest entry and 1/8 of the
+        1xTF32 emulation's error, symmetric bit for bit, two runs
+        bit-equal, and the divisor equal to the division after."""
+        torch.manual_seed(shape[2])
+        x = torch.randn(shape, device=cuda_device)
+        out = batched_gram_matrix(x)
+        ref = gram_ref(x)
+        assert torch.equal(out, out.mT)
+        assert torch.equal(out, batched_gram_matrix(x))
+        if shape[1] == 0:
+            assert torch.equal(out, torch.zeros_like(out))
+            return
+        close(out, ref)
+        err = float((out.double() - ref.double()).abs().max())
+        err_1x = float((matmul_1xtf32(x.mT, x).double()
+                        - ref.double()).abs().max())
+        assert 8 * err <= err_1x, (err, err_1x)
+        nv = torch.arange(shape[0], device=cuda_device, dtype=torch.float32)
+        assert torch.equal(batched_gram_matrix(x, nv),
+                           out / torch.clamp_min(nv, 1.0)[:, None, None])
+
+    def test_gram_reads_misaligned_views(self, cuda_device):
+        base = torch.randn(6 * 40 * 128 + 1, device=cuda_device)
+        x = base[1:].view(6, 40, 128)
+        assert x.data_ptr() % 16
+        close(batched_gram_matrix(x), gram_ref(x))
 
     def test_eigproject(self, cuda_device):
         torch.manual_seed(0)
@@ -245,6 +284,8 @@ class TestKernelsOnCard:
     def test_plans_match_the_kernels(self, cuda_device):
         from repro_torch.kernels import build
         from repro_torch.kernels.featurize_gram import ops as fg_ops
+        from repro_torch.kernels.assign import ops as assign_ops
+        from repro_torch.kernels.gram import ops as gram_ops
         from repro_torch.kernels.gram_project import ops as gp_ops
 
         lib = build.library()
@@ -256,6 +297,18 @@ class TestKernelsOnCard:
             plan = gp_ops.project_plan(d)
             assert lib.repro_gram_project_smem(d, plan.bk, plan.stages) \
                 == plan.smem
+        for d in (1, 5, 127, 128, 129, 512, 784):
+            plan = gram_ops.gram_plan(d)
+            assert gram_ops.kernel_plan(d) == (plan.smem, len(plan.pairs),
+                                               plan.route)
+        for args in [(128, 4, 512, 8), (16, 3, 1024, 64), (1, 1, 16, 1),
+                     (5, 33, 130, 13), (3, 2, 40, 200)]:
+            for cd in ("fp32", "bf16"):
+                plan = assign_ops.one_plan(*args, 132, cd)
+                assert lib.repro_assign_one_smem(
+                    plan.slice_rows, plan.v_rows, plan.stages,
+                    int(cd == "bf16")) \
+                    == plan.smem
 
     @pytest.mark.parametrize("linkage", LINKAGES)
     def test_linkage_step(self, cuda_device, linkage):
@@ -364,6 +417,44 @@ class TestKernelsOnCard:
                 assert m_err <= 2 * tol * scale, (name, m_err)
                 decided = want[2] > tol * scale
                 assert torch.equal(got[1][decided], want[1][decided]), name
+
+    @pytest.mark.parametrize("d,k", [(16, 1), (130, 13), (512, 8),
+                                     (1024, 64)])
+    @pytest.mark.parametrize("n_protos", [1, 4, 33])
+    @pytest.mark.parametrize("b", [1, 5, 128])
+    def test_assign_one_tensor_cores(self, cuda_device, b, n_protos, d, k):
+        """The redesigned assign_one over the dtype grid: every table
+        dtype x compute dtype, a dead prototype, T = 1, and (d, k) whose
+        V is staged in chunks of d; one launch, two runs bit-equal."""
+        torch.manual_seed(b * 100 + n_protos)
+        v = torch.randn((b, d, k), device=cuda_device)
+        p = torch.randn((n_protos, d, d), device=cuda_device)
+        mask = torch.ones(n_protos, device=cuda_device)
+        if n_protos > 2:
+            mask[2] = 0.0
+        for dtype in ("f32", "bf16", "int8"):
+            table, _ = quant.quantize_directory(p, dtype)
+            for cd in ("fp32", "bf16"):
+                tol = 1e-4 if cd == "fp32" else 1e-5
+                before = dispatch.LAUNCHES["assign_one"]
+                got = assign_looped(v, table, mask, cd)
+                assert dispatch.LAUNCHES["assign_one"] == before + 1
+                want = assign_looped_plain(v, table, mask, cd)
+                aff, margin = got[0] * k, got[2] * k
+                assert torch.equal(torch.isinf(aff), torch.isinf(want[0]))
+                fin = torch.isfinite(want[0])
+                scale = float(want[0][fin].abs().max())
+                close(aff[fin], want[0][fin], tol)
+                assert torch.equal(torch.isnan(margin), torch.isnan(want[2]))
+                m_fin = torch.isfinite(want[2])
+                assert float((margin[m_fin] - want[2][m_fin]).abs().max()
+                             ) <= 2 * tol * scale
+                decided = want[2] > tol * scale
+                assert torch.equal(got[1][decided], want[1][decided])
+                if n_protos == 1:
+                    assert torch.equal(got[2], got[0][:, 0])
+                again = assign_looped(v, table, mask, cd)
+                assert all(torch.equal(x, y) for x, y in zip(got, again))
 
     @pytest.mark.parametrize("fn", [assign, assign_looped])
     def test_assign_bf16_differs_from_fp32(self, cuda_device, fn):
