@@ -57,7 +57,18 @@ phase [2] also at (16, 3, 1024, 64), where V is staged in chunks of d;
 phase [4] requires two runs bit-equal at the serving shape and
 prints its device time and the library call's from ``torch.profiler``
 beside the wrapper-level event times, as for ``assign_wave`` at its two
-serving shapes.  Phase [5] times ``torch.linalg.eigh`` on 64 of the
+serving shapes.  ``eigproject`` runs 3xTF32 on ``wgmma`` with the stacked
+signature matrix split once: phases [2] (both load routes of G, random
+G that is not symmetric, NV k off the column slab) and [4] (the dense
+shape) hold it to 1e-5 x max|plain| and 1/8 of the 1xTF32 emulation's
+error, require two runs bit-equal and its split equal to the plain
+layout, and phase [4] prints its device time.  ``wkv_chunked`` computes
+the chunk form on the tensor cores: phase [2] holds fp32 compute to
+1e-5 x max of the sequential oracle and of the plain chunk form, and
+bf16 compute to 2^-8 x max of the plain chunk form with the same bf16
+roundings (its gap to the fp32 oracle at most twice the plain chunk
+form's), S from 1 to 200 and strong decays; phase [4] times both
+compute dtypes at the serving chunk, with device times.  Phase [5] times ``torch.linalg.eigh`` on 64 of the
 dense cell's Grams under cuSOLVER, MAGMA and the host's LAPACK, each
 compared with the default backend's and an fp64 spectrum and
 projectors: it measures and reports, and requires no agreement.  Every
@@ -555,8 +566,13 @@ def main() -> int:
     from repro_torch.data.partition import paper_cifar_two_task
     from repro_torch.data.synthetic import make_task_feature_mixture
     from repro_torch.kernels import build, dispatch
-    from repro_torch.kernels.eigproject import (project_norms_all,
-                                                project_norms_all_ref)
+    from repro_torch.kernels.eigproject import (eig_plan, project_norms_all,
+                                                project_norms_all_ref,
+                                                project_norms_all_tf32,
+                                                split_w_ref)
+    from repro_torch.kernels.eigproject.ops import kernel_plan as \
+        eig_kernel_plan
+    from repro_torch.kernels.eigproject.ops import split_w as eig_split_w
     from repro_torch.kernels.featurize_gram import (batched_featurize_gram,
                                                     featurize_gram_ref)
     from repro_torch.kernels.gram import (batched_gram_matrix, gram_plan,
@@ -583,7 +599,8 @@ def main() -> int:
         _flash_attention_fp32_out)
     from repro_torch.kernels.recurrent_scan import (linear_scan,
                                                     linear_scan_ref,
-                                                    wkv_chunked, wkv_ref)
+                                                    wkv_chunked,
+                                                    wkv_chunked_ref, wkv_ref)
     from repro_torch.launch.decode_loop import (ClusterHeads, Request,
                                                 ServeConfig, ServeEngine,
                                                 cluster_logits_fn,
@@ -665,12 +682,38 @@ def main() -> int:
     require(torch.equal(g, batched_gram_matrix(x)
                         / torch.clamp_min(nv, 1.0)[:, None, None]),
             "gram: the epilogue's divisor differs from the division after")
-    for n, d, k in [(64, 512, 8), (33, 784, 5)]:
-        g = randn(n, d, d)
-        g = g @ g.transpose(1, 2) / d
-        v = torch.linalg.qr(randn(n, d, k))[0]
-        check_close(torch, f"eigproject ({n}, {d}, {k})",
-                    project_norms_all(g, v), project_norms_all_ref(g, v), 1e-5)
+    # eigproject: 3xTF32 on wgmma with W split once.  Symmetric PSD Grams
+    # with orthonormal V (the main path's inputs), then random G that is
+    # not symmetric, on both load routes of G (TMA; 4-byte cp.async at d =
+    # 9 and 130), NV k off the 128-column slab and NG != NV: each to 1e-5
+    # x max|plain| and 1/8 of the 1xTF32 emulation's error, two runs
+    # bit-equal, one launch a call, the split W^T equal to its plain
+    # layout bit for bit.
+    for n_g, n_v, d, k, psd in [(64, 64, 512, 8, True),
+                                (33, 33, 784, 5, True),
+                                (3, 4, 9, 2, False), (5, 33, 130, 5, False),
+                                (6, 17, 512, 8, False)]:
+        g = randn(n_g, d, d)
+        v = randn(n_v, d, k)
+        if psd:
+            g = g @ g.transpose(1, 2) / d
+            v = torch.linalg.qr(v)[0]
+        before = dispatch.LAUNCHES["eigproject"]
+        out = project_norms_all(g, v)
+        require(dispatch.LAUNCHES["eigproject"] == before + 1,
+                "eigproject: not one launch a call")
+        check_split(torch, f"eigproject ({n_g}, {n_v}, {d}, {k}) "
+                    f"({eig_plan(d).route}{', PSD' if psd else ''})", out,
+                    project_norms_all_ref(g, v),
+                    project_norms_all_tf32(g, v, 1))
+        require(torch.equal(out, project_norms_all(g, v)),
+                "eigproject: two runs on the same inputs differ")
+        require(torch.equal(eig_split_w(v)[:, :, :d],
+                            split_w_ref(v)[:, :, :d]),
+                "eigproject: the split W^T differs from its plain layout")
+    require(eig_kernel_plan(130) == eig_plan(130)
+            and eig_kernel_plan(512) == eig_plan(512),
+            "eigproject: the C side's plan differs from eig_plan")
     for linkage in LINKAGES:
         for n in (7, 1024, 3000):
             a = torch.randint(0, 4, (n,), generator=gen).float().to(dev) / 4
@@ -878,7 +921,8 @@ def main() -> int:
     # must miss that function by more than 10x the same limit.
     lm_errs = {"flash fp32": 0.0, "flash bf16": 0.0,
                "flash bf16 fp32-out": 0.0, "flash p-once control": None,
-               "wkv fp32": 0.0, "wkv bf16": 0.0}
+               "wkv fp32": 0.0, "wkv bf16": 0.0, "wkv state": 0.0,
+               "wkv bf16 compute": 0.0}
     n_checks = 0
     for hd in (16, 64, 128, 256):
         for b_, s_, skv_, h_ in [(2, 100, 100, 3), (1, 257, 257, 2),
@@ -939,32 +983,83 @@ def main() -> int:
           f"{lm_errs['flash bf16 fp32-out']:.3e} (tolerance 1e-5), p "
           f"rounded to bf16 once at least "
           f"{lm_errs['flash p-once control']:.3e} (must exceed 1e-4)")
-    # wkv_chunked: S of 1, under one 64-token chunk, and several chunks;
-    # hd 32 and 64; fp32 and bf16 r, k, v.  Output as flash; the state
-    # uses the plain version's separately rounded operations: equal.
+    # wkv_chunked, the chunk form on the tensor cores: S of 1, under one
+    # 16-token sub-chunk, ragged and whole sub-chunks, several 64-token
+    # chunks; hd 32 and 64; fp32 and bf16 r, k, v; decays down to
+    # -exp(randn + 2).  fp32 compute (3xTF32): out and state within 1e-5 x
+    # max of the sequential oracle and of the plain chunk form (out
+    # rounded to bf16: 2^-8).  bf16 compute (the reference's roundings):
+    # out and state within 2^-8 x max of the plain chunk form with the
+    # same roundings; its gap to the fp32 oracle is printed beside the
+    # plain chunk form's, which the CPU tests hold within 2x the
+    # reference's own bf16 kernel's, and may be at most twice that.
     n_checks = 0
+    wkv_gaps = {"kernel": 0.0, "plain": 0.0}
     for hd in (32, 64):
-        for b_, s_, h_ in [(1, 1, 2), (2, 37, 3), (4, 64, 32), (2, 200, 2)]:
-            for dt, tol, key in ((torch.float32, 1e-5, "wkv fp32"),
-                                 (torch.bfloat16, 2 ** -8, "wkv bf16")):
+        for b_, s_, h_, shift in [(1, 1, 2, 0.0), (2, 7, 3, 0.0),
+                                  (1, 16, 2, 0.0), (2, 17, 3, 0.0),
+                                  (2, 37, 3, 0.0), (4, 64, 32, 0.0),
+                                  (2, 130, 2, 0.0), (2, 200, 2, 0.0),
+                                  (2, 200, 2, 2.0)]:
+            for dt in (torch.float32, torch.bfloat16):
                 r_, k_, v_ = (randn(b_, s_, h_, hd).to(dt) for _ in range(3))
-                logw_ = -torch.exp(randn(b_, s_, h_, hd))
+                logw_ = -torch.exp(randn(b_, s_, h_, hd) + shift)
                 u_, st_ = randn(h_, hd), randn(b_, h_, hd, hd)
-                out, new_st = wkv_chunked(r_, k_, v_, logw_, u_, st_)
                 want, want_st = wkv_ref(r_, k_, v_, logw_, u_, st_)
-                require(out.dtype == dt and new_st.dtype == torch.float32,
-                        "wkv: output dtypes")
-                lm_errs[key] = max(lm_errs[key], rel_check(
-                    f"wkv ({b_}, {s_}, {h_}, {hd}) {dt}", out.float(), want,
-                    tol))
-                require(torch.equal(new_st, want_st),
-                        f"wkv ({b_}, {s_}, {h_}, {hd}) {dt}: state differs "
-                        f"from plain")
-                n_checks += 1
-    print(f"  wkv_chunked: {n_checks} cases (S 1/37/64/200, hd 32/64): out "
-          f"fp32 {lm_errs['wkv fp32']:.3e} (tolerance 1e-5), bf16 "
-          f"{lm_errs['wkv bf16']:.3e} (tolerance 2^-8), final state equal "
-          f"to plain (exact)")
+                name = (f"wkv ({b_}, {s_}, {h_}, {hd}) {dt}"
+                        + (" strong decay" if shift else ""))
+                for cd in ("fp32", "bf16"):
+                    before = dispatch.LAUNCHES["wkv_chunked"]
+                    out, new_st = wkv_chunked(r_, k_, v_, logw_, u_, st_,
+                                              compute_dtype=cd)
+                    require(dispatch.LAUNCHES["wkv_chunked"] == before + 1,
+                            "wkv: not one launch a call")
+                    require(out.dtype == dt and new_st.dtype == torch.float32,
+                            "wkv: output dtypes")
+                    plain, plain_st = wkv_chunked_ref(
+                        r_, k_, v_, logw_, u_, st_, compute_dtype=cd)
+                    if cd == "fp32":
+                        tol = 1e-5 if dt == torch.float32 else 2 ** -8
+                        key = "wkv fp32" if dt == torch.float32 \
+                            else "wkv bf16"
+                        for ref_o, ref_s in ((want, want_st),
+                                             (plain, plain_st)):
+                            lm_errs[key] = max(lm_errs[key], rel_check(
+                                f"{name} fp32 compute", out.float(), ref_o,
+                                tol))
+                            lm_errs["wkv state"] = max(
+                                lm_errs["wkv state"], rel_check(
+                                    f"{name} fp32 compute state", new_st,
+                                    ref_s, 1e-5))
+                    else:
+                        lm_errs["wkv bf16 compute"] = max(
+                            lm_errs["wkv bf16 compute"],
+                            rel_check(f"{name} bf16 compute", out.float(),
+                                      plain, 2 ** -8),
+                            rel_check(f"{name} bf16 compute state", new_st,
+                                      plain_st, 2 ** -8))
+                        scale = float(want.abs().max())
+                        gap = max_err(torch, out.float(), want) / scale
+                        plain_gap = max_err(torch, plain.to(dt).float(),
+                                            want) / scale
+                        wkv_gaps["kernel"] = max(wkv_gaps["kernel"], gap)
+                        wkv_gaps["plain"] = max(wkv_gaps["plain"], plain_gap)
+                        require(gap <= max(2 * plain_gap, 1e-5),
+                                f"{name} bf16 compute: gap to the fp32 "
+                                f"oracle {gap:.3e} is over twice the plain "
+                                f"chunk form's {plain_gap:.3e}")
+                    n_checks += 1
+    summary["phase2_wkv_bf16_gap_to_oracle"] = wkv_gaps
+    print(f"  wkv_chunked: {n_checks} cases (S 1/7/16/17/37/64/130/200, hd "
+          f"32/64, fp32 and bf16 r/k/v and compute, strong decays): fp32 "
+          f"compute out {lm_errs['wkv fp32']:.3e} (tolerance 1e-5; bf16 "
+          f"out {lm_errs['wkv bf16']:.3e}, tolerance 2^-8), state "
+          f"{lm_errs['wkv state']:.3e} (tolerance 1e-5) against the oracle "
+          f"and the plain chunk form; bf16 compute "
+          f"{lm_errs['wkv bf16 compute']:.3e} against the plain chunk form "
+          f"(tolerance 2^-8); bf16 compute's gap to the fp32 oracle "
+          f"{wkv_gaps['kernel']:.3e} x max, the plain chunk form's "
+          f"{wkv_gaps['plain']:.3e}")
     # linear_scan: D off the 32-channel warp, S = 1 and long S; the plain
     # version's separately rounded multiply and add: equal.
     for b_, s_, d_ in [(1, 1, 100), (2, 77, 1000), (1, 4096, 4097)]:
@@ -1610,20 +1705,39 @@ def main() -> int:
                 torch.matmul(grams[s:s + 16, None], v[None]), dim=-2)
         return out
 
-    proj_err = check_close(torch, f"eigproject ({n_}, {d_}, {k_})",
-                           project_norms_all(grams, v),
-                           project_norms_all_ref(grams, v), 1e-5)
+    # eigproject at the dense shape: 3xTF32 on wgmma, held to 1e-5 x
+    # max|plain| and 1/8 of the 1xTF32 emulation's error, two runs
+    # bit-equal.  2 N^2 d^2 k operations (G need not be symmetric), as
+    # 3xTF32; bound_fp32_ms has them on the fp32 cores.
+    proj_out = project_norms_all(grams, v)
+    proj_err, proj_err_1x = check_split(
+        torch, f"eigproject ({n_}, {d_}, {k_})", proj_out,
+        project_norms_all_ref(grams, v), project_norms_all_tf32(grams, v, 1))
+    require(torch.equal(proj_out, project_norms_all(grams, v)),
+            "eigproject: two runs on the same inputs differ")
+    del proj_out
     t_kernel = time_ms(torch, lambda: project_norms_all(grams, v), 3)
+    t_dev, dev_how, dev_names = device_ms(
+        torch, lambda: project_norms_all(grams, v), 3)
     t_plain = time_ms(torch, lambda: project_norms_all_ref(grams, v), 3)
     t_lib = time_ms(torch, library_norms, 3)
-    b, by = bound_ms(2.0 * n_ * n_ * d_ * d_ * k_,
-                     4.0 * (n_ * d_ * d_ + n_ * d_ * k_ + n_ * n_ * k_))
+    b, by, b32 = split_bound_ms(
+        2.0 * n_ * n_ * d_ * d_ * k_,
+        4.0 * (n_ * d_ * d_ + n_ * d_ * k_ + n_ * n_ * k_))
+    print(f"  eigproject: {n_} users x {-(-n_ * k_ // 128)} slabs of 128 "
+          f"stacked columns, {eig_plan(d_).route} loads; two runs bit-equal; "
+          f"device time {t_dev:.3f} ms ({dev_how}: "
+          + ", ".join(f"{k} {ms:.3f}" for k, ms in dev_names.items()) + ")")
     kernels.append(dict(
         name="eigproject", route="cuda",
         source="src/repro_torch/kernels/csrc/eigproject.cu",
         replaces="src/repro/kernels/eigproject/eigproject.py:53",
-        launches=launches["eigproject"], max_abs_err=proj_err, ms=t_kernel,
-        plain_ms=t_plain, bound_ms=b, bound_by=by, library_ms=t_lib))
+        launches=launches["eigproject"], max_abs_err=proj_err,
+        emulated_1xtf32_err=proj_err_1x, ms=t_kernel, device_ms=t_dev,
+        device_time_by=dev_how, plain_ms=t_plain, bound_ms=b, bound_by=by,
+        bound_fp32_ms=b32, library_ms=t_lib,
+        library_call="torch.matmul(G_i, V_j) per pair, vector_norm "
+                     "(16 users a call, fp32, TF32 off)"))
 
     prepared = big_r.clone()
     prepared.fill_diagonal_(float("-inf"))
@@ -1935,36 +2049,75 @@ def main() -> int:
         **dense, hybrid=hybrid))
 
     # wkv_chunked at the serving prefill's shape: one chunk of a wave
-    # (B=4, S=64, H=32, hd=64), bf16 r, k, v, fp32 decay logs and state.
-    # Bound: about 4 hd^2 fp32 operations per token and head, or the
-    # bytes, whichever is larger.  No library call computes it.
+    # (B=4, S=64, H=32, hd=64), bf16 r, k, v, fp32 decay logs and state,
+    # under both compute dtypes (3f passes bf16).  bf16 compute: out and
+    # state within 2^-8 x max of the plain chunk form with its roundings,
+    # and out within the existing 2^-8 x max of the fp32 oracle; fp32
+    # compute: within 1e-5 of both (out rounded to bf16: 2^-8).  Bound:
+    # about 4 hd^2 operations per token and head (the products at the
+    # compute dtype's tensor-core rate, every one as fp32 in
+    # bound_fp32_ms), or the bytes, whichever is larger.  No library call
+    # computes it.
     wb, ws, wh, whd = scfg_f.wave, scfg_f.prefill_chunk, \
         cfg_f.d_model // cfg_f.rwkv_head_dim, cfg_f.rwkv_head_dim
     wr, wk, wv = (randn(wb, ws, wh, whd).to(torch.bfloat16)
                   for _ in range(3))
     wlogw = -torch.exp(randn(wb, ws, wh, whd))
     wu, wst = randn(wh, whd), randn(wb, wh, whd, whd)
-    out, new_st = wkv_chunked(wr, wk, wv, wlogw, wu, wst)
     want, want_st = wkv_ref(wr, wk, wv, wlogw, wu, wst)
-    wkv_rel = rel_check(f"wkv ({wb}, {ws}, {wh}, {whd}) bf16", out.float(),
-                        want, 2 ** -8)
-    require(torch.equal(new_st, want_st), "wkv: state differs from plain")
     n_tok = wb * ws * wh
-    b, by = bound_ms(4.0 * whd * whd * n_tok,
-                     n_tok * whd * (3 * 2 + 4 + 2) + 4.0 * wh * whd
-                     + 2 * 4.0 * wb * wh * whd * whd)
+    w_bytes = (n_tok * whd * (3 * 2 + 4 + 2) + 4.0 * wh * whd
+               + 2 * 4.0 * wb * wh * whd * whd)
+    wkv_rows = {}
+    for cd in ("bf16", "fp32"):
+        def call():
+            return wkv_chunked(wr, wk, wv, wlogw, wu, wst, compute_dtype=cd)
+
+        out, new_st = call()
+        plain, plain_st = wkv_chunked_ref(wr, wk, wv, wlogw, wu, wst,
+                                          compute_dtype=cd)
+        name = f"wkv ({wb}, {ws}, {wh}, {whd}) bf16, {cd} compute"
+        if cd == "bf16":
+            rel = rel_check(name, out.float(), plain, 2 ** -8)
+            rel_st = rel_check(f"{name} state", new_st, plain_st, 2 ** -8)
+            rel_oracle = rel_check(f"{name} against the fp32 oracle",
+                                   out.float(), want, 2 ** -8)
+            b, by, b32 = assign_bound_ms(0.0, 4.0 * whd * whd * n_tok,
+                                         "bf16", w_bytes)
+        else:
+            rel = max(rel_check(name, out.float(), plain, 2 ** -8),
+                      rel_check(f"{name} oracle", out.float(), want, 2 ** -8))
+            rel_st = max(rel_check(f"{name} state", new_st, plain_st, 1e-5),
+                         rel_check(f"{name} state oracle", new_st, want_st,
+                                   1e-5))
+            rel_oracle = max_err(torch, out.float(), want) / float(
+                want.abs().max())
+            b, by, b32 = split_bound_ms(4.0 * whd * whd * n_tok, w_bytes)
+        t_dev, dev_how, dev_names = device_ms(torch, call)
+        wkv_rows[cd] = dict(
+            max_abs_err=max_err(torch, out.float(), plain), rel_err=rel,
+            state_rel_err=rel_st, oracle_rel_err=rel_oracle,
+            plain_oracle_rel_err=max_err(torch, plain, want) / float(
+                want.abs().max()),
+            ms=time_ms(torch, call, 20), device_ms=t_dev,
+            device_time_by=dev_how,
+            plain_ms=time_ms(torch, lambda: wkv_chunked_ref(
+                wr, wk, wv, wlogw, wu, wst, compute_dtype=cd), 3),
+            bound_ms=b, bound_by=by, bound_fp32_ms=b32, library_ms=None)
+        print(f"  {name}: {wkv_rows[cd]['ms']:.4f} ms at the wrapper, "
+              f"device time {t_dev:.4f} ms ({dev_how}: "
+              + ", ".join(f"{k[:40]} {ms:.4f}" for k, ms in dev_names.items())
+              + f"); bound {b:.4f} by {by}; out {rel:.3e} and state "
+              f"{rel_st:.3e} x max of the plain chunk form; out "
+              f"{rel_oracle:.3e} of the fp32 oracle (plain chunk form "
+              f"{wkv_rows[cd]['plain_oracle_rel_err']:.3e})")
     kernels.append(dict(
         name="wkv_chunked", route="cuda",
         source="src/repro_torch/kernels/csrc/recurrent_scan.cu",
         replaces="src/repro/kernels/recurrent_scan/recurrent_scan.py:97",
-        launches=launches_f["wkv_chunked"],
-        max_abs_err=max_err(torch, out.float(), want), rel_err=wkv_rel,
-        ms=time_ms(torch, lambda: wkv_chunked(wr, wk, wv, wlogw, wu, wst),
-                   20),
-        plain_ms=time_ms(torch, lambda: wkv_ref(wr, wk, wv, wlogw, wu, wst),
-                         3),
-        bound_ms=b, bound_by=by, library_ms=None,
-        shape=[wb, ws, wh, whd]))
+        launches=launches_f["wkv_chunked"], **wkv_rows["bf16"],
+        shape=[wb, ws, wh, whd], compute_dtype="bf16",
+        fp32_compute=wkv_rows["fp32"]))
 
     # linear_scan at the hybrid prefill's shape (B=1, S=4096, D=4096).
     lb, (ls, ld) = HYBRID_PREFILL[0], (HYBRID_PREFILL[1], 4096)

@@ -5,8 +5,12 @@ The sources under ``kernels/csrc`` are compiled with ``nvcc`` for
 linked into ``build/repro_torch_kernels/libkernels.so`` at the repository
 root (a git-ignored directory).  The library has a plain C interface and
 is loaded with ``ctypes``; nothing here includes PyTorch's headers, so a
-full build takes seconds.  A stamp holding the hash of the sources and
-flags lets a second process reuse a finished build.
+full build takes seconds.  The sources share three headers beside them:
+``common.cuh`` (the C interface), ``mma.cuh`` (``mma.sync``, ``cp.async``
+and the 3xTF32 split) and ``wgmma.cuh`` (mbarriers, TMA and ``wgmma``,
+for ``gram.cu`` and ``eigproject.cu``).  A stamp holding the hash of every
+file under ``csrc`` and the flags lets a second process reuse a finished
+build.
 
 Importing this module builds nothing: ``library()`` does, once per
 process, and raises if ``nvcc`` is missing or a source does not compile.
@@ -36,7 +40,9 @@ _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int64
 _SIGNATURES = {
     "repro_gram": (_P, _P, _P, _I, _I, _I, _P),
     "repro_gram_plan": (_I, _P, _P),
-    "repro_project_norms": (_P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_project_norms": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_eigproject_split": (_P, _P, _I, _I, _I, _P),
+    "repro_eigproject_plan": (_I, _P, _P),
     "repro_linkage_step": (_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _P),
     "repro_nn_chain": (_P, _I, _I, _I, _P, _P, _P, _P),
     "repro_nn_chain_smem": (_I,),
@@ -56,12 +62,14 @@ _SIGNATURES = {
                               _P),
     "repro_flash_attention_tc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                                  _I, _I, _P),
-    "repro_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "repro_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                  _P),
     "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "repro_error_string": (_I,),
 }
 _RESTYPES = {"repro_nn_chain_smem": ctypes.c_int64,
              "repro_gram_plan": ctypes.c_int64,
+             "repro_eigproject_plan": ctypes.c_int64,
              "repro_featurize_gram_smem": ctypes.c_int64,
              "repro_gram_project_smem": ctypes.c_int64,
              "repro_assign_one_smem": ctypes.c_int64,

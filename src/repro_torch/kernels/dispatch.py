@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["LAUNCHES", "resolve_device", "device_kind", "on_cuda",
-           "count_launch", "reset_launches", "stream_of"]
+           "count_launch", "reset_launches", "stream_of", "aligned16"]
 
 #: Kernel name -> launches since the last ``reset_launches()``.  Each
 #: wrapper adds one where it launches its kernel, and nowhere else.
@@ -61,6 +61,14 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
 def stream_of(t: torch.Tensor) -> int:
     """The current CUDA stream of ``t``'s device, as a pointer int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def aligned16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte aligned address, as the kernels'
+    16-byte and TMA loads need: a view whose storage offset breaks the
+    alignment is copied."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def count_launch(name: str) -> None:

@@ -1,6 +1,10 @@
-from repro_torch.kernels.eigproject.ops import project_norms, project_norms_all
+from repro_torch.kernels.eigproject.ops import (eig_plan, project_norms,
+                                               project_norms_all)
 from repro_torch.kernels.eigproject.ref import (project_norms_all_ref,
-                                                project_norms_ref)
+                                                project_norms_all_tf32,
+                                                project_norms_ref,
+                                                split_w_ref)
 
-__all__ = ["project_norms", "project_norms_all", "project_norms_ref",
-           "project_norms_all_ref"]
+__all__ = ["eig_plan", "project_norms", "project_norms_all",
+           "project_norms_ref", "project_norms_all_ref",
+           "project_norms_all_tf32", "split_w_ref"]

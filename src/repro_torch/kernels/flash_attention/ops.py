@@ -40,14 +40,6 @@ def kernel_entry(dtype: torch.dtype) -> str:
     return _ENTRIES[dtype]
 
 
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """``t`` contiguous at a 16-byte aligned address, as the kernels'
-    16-byte loads need: a view whose storage offset breaks the alignment
-    is copied."""
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _check(q, k, v, window: int) -> None:
     if q.ndim != 4 or k.shape != v.shape or k.ndim != 4 \
             or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
@@ -70,7 +62,7 @@ def _launch(q, k, v, causal: bool, window: int,
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if b * h > 65535:
         raise ValueError(f"batch x heads {b * h} exceeds the grid's 65535")
-    q, k, v = (_aligned(t) for t in (q, k, v))
+    q, k, v = (dispatch.aligned16(t) for t in (q, k, v))
     out = torch.empty(q.shape, dtype=out_dtype, device=q.device)
     if out.numel() == 0:
         return out

@@ -79,9 +79,7 @@ def batched_gram_matrix(x: torch.Tensor, n_valid: torch.Tensor | None = None
         return g / torch.clamp_min(n_valid, 1.0)[:, None, None]
     if x.dtype != torch.float32:
         raise TypeError(f"the gram kernel takes float32, got {x.dtype}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:
-        x = x.clone()  # TMA reads from a 16-byte aligned base
+    x = dispatch.aligned16(x)  # TMA reads from a 16-byte aligned base
     n_users, n, d = x.shape
     out = torch.empty((n_users, d, d), device=x.device, dtype=torch.float32)
     if out.numel() == 0:

@@ -11,23 +11,25 @@ mask ragged edges, where the reference pads the head, channel and
 sequence axes to its tiles; they have fixed tiles, so the reference's
 ``chunk``, ``block_d`` and tuning cache have no counterpart.
 
-Both kernels step through the sequence in fp32.  The wkv kernel does so
-whatever ``compute_dtype`` says: the reference's TPU kernel rounds its
-chunk-form operands to bf16 under ``"bf16"``, and the tensor-core chunk
-form is left for a later redesign; ``compute_dtype`` is still
-validated.  The reference's ``linear_scan`` takes a ``compute_dtype``
-that its only caller leaves at fp32; the port has none.
+The wkv kernel computes the chunk form over sub-chunks of 16 tokens
+(``ref.wkv_chunked_ref`` is its plain version): under
+``compute_dtype="bf16"`` it rounds the operands the reference's kernel
+rounds and runs its products on bf16 tensor cores, under ``"fp32"`` it
+keeps fp32 products; the state is fp32 under both.  The reference's
+``linear_scan`` takes a ``compute_dtype`` that its only caller leaves at
+fp32; the port has none, and its scan steps in fp32.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.recurrent_scan.ref import linear_scan_ref, wkv_ref
+from repro_torch.kernels.recurrent_scan.ref import (COMPUTE_DTYPES,
+                                                    linear_scan_ref,
+                                                    wkv_chunked_ref)
 
-COMPUTE_DTYPES = ("fp32", "bf16")
-#: Head dims the wkv kernel is instantiated for (one thread per value
-#: column, the state column in registers).
+#: Head dims the wkv kernel is instantiated for (hd / 4 warps a block,
+#: the first hd / 8 holding 8 value columns of the state each).
 WKV_HEAD_DIMS = (32, 64)
 
 
@@ -35,8 +37,8 @@ def wkv_chunked(r, k, v, logw, u, state, *, compute_dtype: str = "bf16"
                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """RWKV-6 WKV: ``r/k/v/logw (B, S, H, hd)``, ``u (H, hd)``,
     ``state (B, H, hd, hd)`` -> ``(out (B, S, H, hd) in r.dtype, final
-    state (B, H, hd, hd) f32)``.  ``compute_dtype`` is validated and has
-    no effect yet: the kernel and its plain version compute in fp32."""
+    state (B, H, hd, hd) f32)``, in the chunk form with the compute
+    dtype's roundings (``wkv_chunked_ref``)."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, "
                          f"got {compute_dtype!r}")
@@ -49,7 +51,8 @@ def wkv_chunked(r, k, v, logw, u, state, *, compute_dtype: str = "bf16"
                          f"{hd}), got {tuple(u.shape)} and "
                          f"{tuple(state.shape)}")
     if not dispatch.on_cuda(r, k, v, logw, u, state):
-        out, st = wkv_ref(r, k, v, logw, u, state)
+        out, st = wkv_chunked_ref(r, k, v, logw, u, state,
+                                  compute_dtype=compute_dtype)
         return out.to(r.dtype), st
     if hd not in WKV_HEAD_DIMS:
         raise ValueError(f"the wkv kernel takes head dims {WKV_HEAD_DIMS}, "
@@ -58,8 +61,9 @@ def wkv_chunked(r, k, v, logw, u, state, *, compute_dtype: str = "bf16"
             or k.dtype != r.dtype or v.dtype != r.dtype:
         raise TypeError(f"the wkv kernel takes float32 or bfloat16 r, k, v "
                         f"of one dtype, got {r.dtype}, {k.dtype}, {v.dtype}")
-    r, k, v = r.contiguous(), k.contiguous(), v.contiguous()
-    logw, u, state = (t.float().contiguous() for t in (logw, u, state))
+    r, k, v, logw = (dispatch.aligned16(t_)
+                     for t_ in (r, k, v, logw.float()))
+    u, state = (t_.float().contiguous() for t_ in (u, state))
     out = torch.empty_like(r)
     st = torch.empty_like(state)
     if b * h == 0:
@@ -70,6 +74,7 @@ def wkv_chunked(r, k, v, logw, u, state, *, compute_dtype: str = "bf16"
                            logw.data_ptr(), u.data_ptr(), state.data_ptr(),
                            out.data_ptr(), st.data_ptr(), b, s, h, hd,
                            int(r.dtype == torch.bfloat16),
+                           int(compute_dtype == "bf16"),
                            dispatch.stream_of(r))
     build.check(rc, "wkv_chunked")
     dispatch.count_launch("wkv_chunked")

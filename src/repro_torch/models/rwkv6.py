@@ -244,7 +244,7 @@ def rwkv_block_apply(params, cfg: RWKVConfig, x: torch.Tensor,
     u = tp.u.float()
     if cfg.impl == "pallas" and s > 1:
         # bf16 compute only when the model runs bf16 activations (the
-        # reference's rule; the kernel validates it and steps in fp32)
+        # reference's rule)
         cd = "bf16" if x.dtype == torch.bfloat16 else "fp32"
         o, wkv = wkv_chunked(r, k, v, logw, u, state["wkv"],
                              compute_dtype=cd)

@@ -9,8 +9,9 @@ a machine with only PyTorch:
 Tolerances: the gram, eigproject, featurize_gram (fp32) and
 gram_project kernels sum in fp32 in another order than cuBLAS, so they
 agree to 1e-5 of the largest entry; featurize_gram in bf16 is held to
-the reference's 2e-2 of the largest entry.  featurize_gram (fp32) and
-gram_project run their products as 3xTF32 on the tensor cores: each is
+the reference's 2e-2 of the largest entry.  featurize_gram (fp32),
+gram_project and eigproject run their products as 3xTF32 on the tensor
+cores (eigproject: ``project_norms_all_tf32(..., 1)``): each is
 also held to at most 1/8 of the error of the plain 1xTF32 emulation
 (``kernels/tf32.py::matmul_1xtf32``, hi hi alone) on the same inputs,
 and two runs give the same bits; the linkage kernels use the
@@ -42,11 +43,15 @@ behind bf16 inputs, with its output left in fp32
 (``ops._flash_attention_fp32_out``), agrees with the fp32 function of
 the bf16 values to 1e-5 of the largest output: p.v keeps p to about 16
 bits (its bf16 hi and lo parts), where p rounded to bf16 once would
-miss by 100x that.  The wkv kernel's
-output agrees to 1e-5 in fp32 (an fp32 dot in another order) and to
-2^-8 when it is rounded to bf16; its state and the linear scan use the
-plain versions' separately rounded IEEE operations and equal them bit
-for bit.
+miss by 100x that.  The wkv kernel computes
+the chunk form (sub-chunks of 16 tokens) on the tensor cores: under fp32
+compute (3xTF32) its output and state agree with the sequential oracle
+and with the plain chunk form to 1e-5 of the largest entry (2^-8 for an
+output rounded to bf16); under bf16 compute, with the reference's bf16
+roundings, to 2^-8 of the plain chunk form's (``wkv_chunked_ref``), whose
+gap to the oracle the CPU tests hold within 2x the reference's own bf16
+kernel's.  The linear scan uses the plain version's separately rounded
+IEEE operations and equals it bit for bit.
 """
 import numpy as np
 import pytest
@@ -62,8 +67,11 @@ from repro_torch.kernels import dispatch, quant
 from repro_torch.kernels.assign import (assign, assign_looped,
                                         assign_looped_plain,
                                         assign_wave_plain)
-from repro_torch.kernels.eigproject import (project_norms_all,
-                                            project_norms_all_ref)
+from repro_torch.kernels.eigproject import (eig_plan, project_norms_all,
+                                            project_norms_all_ref,
+                                            project_norms_all_tf32,
+                                            split_w_ref)
+from repro_torch.kernels.eigproject.ops import kernel_plan, split_w
 from repro_torch.kernels.featurize_gram import (batched_featurize_gram,
                                                 featurize_gram_ref)
 from repro_torch.kernels.gram_project import (batched_gram_project,
@@ -73,7 +81,8 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
 from repro_torch.kernels.flash_attention.ops import _flash_attention_fp32_out
 from repro_torch.kernels.gram import batched_gram_matrix, gram_ref
 from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_ref,
-                                                wkv_chunked, wkv_ref)
+                                                wkv_chunked, wkv_chunked_ref,
+                                                wkv_ref)
 from repro_torch.kernels.tf32 import matmul_1xtf32
 from repro_torch.kernels.linkage import (LINKAGES, linkage_step,
                                          linkage_step_ref, nn_chain,
@@ -147,12 +156,30 @@ class TestKernelsOnCard:
         assert x.data_ptr() % 16
         close(batched_gram_matrix(x), gram_ref(x))
 
-    def test_eigproject(self, cuda_device):
-        torch.manual_seed(0)
-        for n_g, n_v, d, k in [(3, 4, 9, 2), (5, 33, 130, 5), (4, 8, 512, 8)]:
-            g = torch.randn((n_g, d, d), device=cuda_device)
-            v = torch.randn((n_v, d, k), device=cuda_device)
-            close(project_norms_all(g, v), project_norms_all_ref(g, v))
+    @pytest.mark.parametrize("n_g,n_v,d,k", [
+        (3, 4, 9, 2), (5, 33, 130, 5), (4, 8, 512, 8), (2, 17, 512, 8),
+        (3, 5, 784, 5), (1, 1, 1, 1)])
+    def test_eigproject(self, cuda_device, n_g, n_v, d, k):
+        """Both load routes of G (TMA where 4 d % 16 == 0, 4-byte cp.async
+        at d = 9 and 130), NV k off the 128-column slab, NG != NV, G not
+        symmetric: 1e-5 of the largest norm and 1/8 of the 1xTF32
+        emulation's error, two runs bit-equal, one launch a call, and the
+        split W^T equal to its plain layout bit for bit."""
+        torch.manual_seed(d + k)
+        g = torch.randn((n_g, d, d), device=cuda_device)
+        v = torch.randn((n_v, d, k), device=cuda_device)
+        before = dispatch.LAUNCHES["eigproject"]
+        out = project_norms_all(g, v)
+        assert dispatch.LAUNCHES["eigproject"] == before + 1
+        ref = project_norms_all_ref(g, v)
+        close(out, ref)
+        err = float((out.double() - ref.double()).abs().max())
+        err_1x = float((project_norms_all_tf32(g, v, 1).double()
+                        - ref.double()).abs().max())
+        assert 8 * err <= err_1x, (err, err_1x)
+        assert torch.equal(out, project_norms_all(g, v))
+        assert torch.equal(split_w(v)[:, :, :d], split_w_ref(v)[:, :, :d])
+        assert kernel_plan(d) == eig_plan(d)
 
     @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
     def test_featurize_gram(self, cuda_device, compute_dtype):
@@ -631,22 +658,56 @@ class TestLMKernelsOnCard:
 
     @pytest.mark.parametrize("hd", [32, 64])
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    def test_wkv(self, cuda_device, hd, dtype):
+    @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
+    def test_wkv(self, cuda_device, hd, dtype, compute_dtype):
+        """The chunk form on the tensor cores.  fp32 compute: out and state
+        within 1e-5 of the largest entry of the sequential oracle and of
+        the plain chunk form (out rounded to bf16: 2^-8).  bf16 compute:
+        out and state within 2^-8 of the plain chunk form with its bf16
+        roundings.  Ragged sub-chunks, and decays down to -exp(randn + 2)
+        with nothing non-finite."""
         torch.manual_seed(hd)
-        for b, s, h in [(1, 1, 2), (2, 7, 3), (4, 64, 32), (2, 130, 2)]:
+        cases = [(1, 1, 2, 0.0), (2, 7, 3, 0.0), (1, 16, 2, 0.0),
+                 (2, 17, 3, 0.0), (4, 64, 32, 0.0), (2, 130, 2, 0.0),
+                 (1, 200, 2, 0.0), (2, 200, 2, 2.0)]
+        for b, s, h, shift in cases:
             r, k, v = (torch.randn((b, s, h, hd), device=cuda_device
                                    ).to(dtype) for _ in range(3))
-            logw = -torch.exp(torch.randn((b, s, h, hd), device=cuda_device))
+            logw = -torch.exp(torch.randn((b, s, h, hd), device=cuda_device)
+                              + shift)
             u = torch.randn((h, hd), device=cuda_device)
             st = torch.randn((b, h, hd, hd), device=cuda_device)
             before = dispatch.LAUNCHES["wkv_chunked"]
-            out, new_st = wkv_chunked(r, k, v, logw, u, st)
+            out, new_st = wkv_chunked(r, k, v, logw, u, st,
+                                      compute_dtype=compute_dtype)
             assert dispatch.LAUNCHES["wkv_chunked"] == before + 1
             assert out.dtype == dtype and new_st.dtype == torch.float32
-            want, want_st = wkv_ref(r, k, v, logw, u, st)
-            close(out.float(), want,
-                  1e-5 if dtype == torch.float32 else 2 ** -8)
-            assert torch.equal(new_st, want_st)
+            assert bool(torch.isfinite(out).all()
+                        and torch.isfinite(new_st).all())
+            plain, plain_st = wkv_chunked_ref(r, k, v, logw, u, st,
+                                              compute_dtype=compute_dtype)
+            if compute_dtype == "fp32":
+                tol = 1e-5 if dtype == torch.float32 else 2 ** -8
+                want, want_st = wkv_ref(r, k, v, logw, u, st)
+                close(out.float(), want, tol)
+                close(out.float(), plain, tol)
+                close(new_st, want_st)
+                close(new_st, plain_st)
+            else:
+                close(out.float(), plain, 2 ** -8)
+                close(new_st, plain_st, 2 ** -8)
+
+    def test_wkv_misaligned_view(self, cuda_device):
+        base = torch.randn(2 * 20 * 2 * 32 + 1, device=cuda_device)
+        r = base[1:].view(2, 20, 2, 32)
+        assert r.data_ptr() % 16
+        logw = -torch.exp(r)
+        u = torch.randn((2, 32), device=cuda_device)
+        st = torch.randn((2, 2, 32, 32), device=cuda_device)
+        out, new_st = wkv_chunked(r, r, r, logw, u, st, compute_dtype="fp32")
+        want, want_st = wkv_ref(r, r, r, logw, u, st)
+        close(out, want)
+        close(new_st, want_st)
 
     def test_linear_scan(self, cuda_device):
         torch.manual_seed(0)

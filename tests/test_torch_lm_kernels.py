@@ -4,12 +4,13 @@ Pallas kernels (interpret mode) and oracles, on the same numpy inputs.
 On the CPU each wrapper runs its kernel's plain version; the CUDA
 kernels are held against those plain versions on the card in
 ``test_torch_kernels_gpu.py``.  Tolerances: fp32 results summed in
-another order agree to 1e-5 of the largest entry.  The reference's wkv
-kernel rounds its chunk-form operands to bf16 under
-``compute_dtype="bf16"`` while the port steps in fp32, so bf16 is held
-to the reference's own bar (``tests/test_kernels.py::
-test_wkv_bf16_parity``): 1e-3 at 0.1-scale inputs, against the oracle
-and against the reference's bf16 kernel.  Flash on bf16 inputs returns
+another order agree to 1e-5 of the largest entry.  The wkv wrapper runs
+the chunk form (``wkv_chunked_ref``), which rounds the operands the
+reference's kernel rounds under ``compute_dtype="bf16"``, the default; so
+fp32 compute is held to 1e-5 and bf16 to the reference's own bar
+(``tests/test_kernels.py::test_wkv_bf16_parity``): 1e-3 at 0.1-scale
+inputs, against the oracle and against the reference's bf16 kernel
+(``test_torch_wkv.py`` holds it at full scale).  Flash on bf16 inputs returns
 bf16; it is held to one bf16 ulp of the largest output (2^-8) against
 the fp32 function of the same inputs.  The tensor-core kernel's split of
 p into two bf16 parts (``flash_ref(..., p_rounding="hi_lo")``) is held to
@@ -32,7 +33,8 @@ from repro_torch.kernels import dispatch
 from repro_torch.kernels.flash_attention import flash_attention, flash_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_ref,
-                                                wkv_chunked, wkv_ref)
+                                                wkv_chunked, wkv_chunked_ref,
+                                                wkv_ref)
 
 TOL = 1e-5
 
@@ -215,8 +217,21 @@ class TestWKV:
             wkv_chunked(*ins[:4], ins[4][:1], ins[5])
         with pytest.raises(ValueError, match="share one"):
             wkv_chunked(ins[0], ins[1][:, :2], *ins[2:])
-        torch.testing.assert_close(wkv_chunked(*ins)[0],
+        torch.testing.assert_close(wkv_chunked(*ins, compute_dtype="fp32")[0],
                                    wkv_ref(*ins)[0].to(ins[0].dtype))
+        with pytest.raises(ValueError, match="compute_dtype"):
+            wkv_chunked_ref(*ins, compute_dtype="fp16")
+
+    def test_default_is_bf16_chunk_form(self):
+        """The default compute dtype is bf16: on the CPU the wrapper is
+        the chunk form with the reference's bf16 roundings."""
+        ins = [torch.from_numpy(t) for t in _wkv_inputs(
+            np.random.default_rng(0), 1, 2, 4, 16)]
+        got = wkv_chunked(*ins)
+        want = wkv_chunked_ref(*ins, compute_dtype="bf16")
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert not torch.equal(got[0], wkv_chunked(
+            *ins, compute_dtype="fp32")[0])
 
 
 class TestLinearScan:
