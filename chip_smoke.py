@@ -68,7 +68,18 @@ the chunk form on the tensor cores: phase [2] holds fp32 compute to
 bf16 compute to 2^-8 x max of the plain chunk form with the same bf16
 roundings (its gap to the fp32 oracle at most twice the plain chunk
 form's), S from 1 to 200 and strong decays; phase [4] times both
-compute dtypes at the serving chunk, with device times.  Phase [5] times ``torch.linalg.eigh`` on 64 of the
+compute dtypes at the serving chunk, with device times.  ``nn_chain``
+caches every live row's nearest neighbour: phase [2] holds its merges,
+heights and step count to the plain loop bit for bit and its counters
+(iterations, rows rescanned) to the plain model of the cache on random,
+1/8-grid and NaN R for all three linkages, and runs 20,000 leaves (the
+per-leaf state in device scratch) to every merge and the blocks of R;
+phase [4] prints its device time, iterations and us an iteration at the
+dense cell's R.  ``linear_scan`` streams through a TMA ring (4-byte
+cp.async where TMA cannot read): phase [2] holds it bit for bit on both
+routes, a misaligned view, B = 3 and S off the stage, two runs alike;
+phase [4] prints its route, device time, GB/s and the times of other
+rings.  Phase [5] times ``torch.linalg.eigh`` on 64 of the
 dense cell's Grams under cuSOLVER, MAGMA and the host's LAPACK, each
 compared with the default backend's and an fp64 spectrum and
 projectors: it measures and reports, and requires no agreement.  Every
@@ -411,6 +422,66 @@ def device_ms(torch, fn, calls: int = 20) -> tuple[float, str, dict]:
     return start.elapsed_time(end) / 100, "events, 100 calls", {}
 
 
+#: The NN-chain loop's phases, as a REPRO_NN_CHAIN_CLOCKS build of
+#: ``csrc/linkage.cu`` marks them (thread 0's cycles; a barrier's phase is
+#: the wait there for the slowest warp).
+CHAIN_PHASES = ("extension", "merge head", "barrier before the pass",
+                "row pass", "row argmax", "barrier after the pass",
+                "partials and writes", "rescans (warp 0)",
+                "barrier after the rescans")
+
+
+def chain_probe_libs() -> dict:
+    """``csrc/linkage.cu`` compiled alone into ``build/chain_probes`` once
+    for each probe of its header, in parallel: ``{"scratch": lib,
+    "clocks": lib}``."""
+    import ctypes
+
+    from repro_torch.kernels import build
+
+    out = build.BUILD_DIR.parent / "chain_probes"
+    out.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name, define in (("scratch", "REPRO_NN_CHAIN_SCRATCH"),
+                         ("clocks", "REPRO_NN_CHAIN_CLOCKS")):
+        path = out / f"{name}.so"
+        procs[name] = path, subprocess.Popen(
+            [build._nvcc(), *build.NVCC_FLAGS, f"-D{define}", "-I",
+             str(build.CSRC), "-shared", "-o", str(path),
+             str(build.CSRC / "linkage.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    libs = {}
+    for name, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        require(proc.returncode == 0,
+                f"the {name} probe build of linkage.cu failed:\n{log}")
+        libs[name] = ctypes.CDLL(str(path))
+        libs[name].repro_nn_chain.argtypes = \
+            build._SIGNATURES["repro_nn_chain"]
+    libs["clocks"].repro_nn_chain_clocks.argtypes = (ctypes.c_void_p,)
+    return libs
+
+
+def probe_chain(torch, lib, s):
+    """``nn_chain``'s launch (average linkage) through a probe build:
+    ``(merge_rows, heights, counters)``."""
+    from repro_torch.kernels import build, dispatch
+    from repro_torch.kernels.linkage import chain_plan
+    from repro_torch.kernels.linkage.ref import max_iterations
+
+    n = s.shape[0]
+    merges = torch.zeros((n - 1, 2), dtype=torch.int32, device=s.device)
+    heights = torch.zeros((n - 1,), dtype=torch.float32, device=s.device)
+    counters = torch.zeros((3,), dtype=torch.int32, device=s.device)
+    scratch = torch.empty((chain_plan(n).scratch,), dtype=torch.uint8,
+                          device=s.device)
+    build.check(lib.repro_nn_chain(
+        s.data_ptr(), n, 0, max_iterations(n), merges.data_ptr(),
+        heights.data_ptr(), counters.data_ptr(), scratch.data_ptr(),
+        dispatch.stream_of(s)), "nn_chain (probe build)")
+    return merges, heights, counters
+
+
 def gram_project_1xtf32(torch, x, v, n_valid=None):
     """``||x^T (x v)|| / max(n_valid, 1)`` with both products as one TF32
     product, in chunks of users."""
@@ -579,9 +650,11 @@ def main() -> int:
                                           gram_ref)
     from repro_torch.kernels.gram_project import (batched_gram_project,
                                                   gram_project_ref)
-    from repro_torch.kernels.linkage import (LINKAGES, linkage_step,
-                                             linkage_step_ref, nn_chain,
+    from repro_torch.kernels.linkage import (LINKAGES, chain_plan,
+                                             linkage_step, linkage_step_ref,
+                                             nn_chain, nn_chain_cached_ref,
                                              nn_chain_ref)
+    from repro_torch.kernels.linkage import ops as lk_ops
     from repro_torch.kernels import quant
     from repro_torch.kernels.assign import (assign, assign_looped,
                                             assign_looped_plain,
@@ -598,9 +671,11 @@ def main() -> int:
     from repro_torch.kernels.flash_attention.ops import (
         _flash_attention_fp32_out)
     from repro_torch.kernels.recurrent_scan import (linear_scan,
+                                                    linear_scan_plan,
                                                     linear_scan_ref,
                                                     wkv_chunked,
                                                     wkv_chunked_ref, wkv_ref)
+    from repro_torch.kernels.recurrent_scan import ops as rs_ops
     from repro_torch.launch.decode_loop import (ClusterHeads, Request,
                                                 ServeConfig, ServeEngine,
                                                 cluster_logits_fn,
@@ -730,22 +805,76 @@ def main() -> int:
                 "linkage_step: all-masked row must give (0, -inf)")
     print("  linkage_step: equal to plain (exact) for all three linkages, "
           "n in (7, 1024, 3000), ties and masked columns")
-    r = np.random.default_rng(SEED).uniform(size=(300, 300))
+    # nn_chain with cached nearest neighbours: merges, heights and the
+    # step count equal to the plain loop's, and its counters (iterations,
+    # rows rescanned) to the plain model of the cache's, for all three
+    # linkages on random R, ties on a 1/8 grid and NaN entries; past the
+    # 19,370 leaves that shared memory once capped (the per-leaf state in
+    # device scratch), every merge and the 4 blocks of R recovered.
+    rng = np.random.default_rng(SEED)
+    r = rng.uniform(size=(300, 300))
     s300 = torch.tensor((r + r.T) / 2, dtype=torch.float32, device=dev)
-    s300.fill_diagonal_(float("-inf"))
-    for linkage in LINKAGES:
-        m_k, h_k, t_k = nn_chain(s300.clone(), linkage)
-        m_p, h_p, t_p = nn_chain_ref(s300.clone(), linkage)
-        require(int(t_k) == int(t_p) == 299,
-                f"nn_chain {linkage}: merges {int(t_k)} vs {int(t_p)}")
-        require(torch.equal(torch.sort(h_k)[0], torch.sort(h_p)[0]),
-                f"nn_chain {linkage}: sorted heights differ")
-        for t in (1, 4, 300):
-            require(torch.equal(cut_device(m_k, h_k, 300, t),
-                                cut_device(m_p, h_p, 300, t)),
-                    f"nn_chain {linkage}: labels differ at T={t}")
-    print("  nn_chain (300 leaves): merges, sorted heights and labels "
-          "equal to the plain loop (exact) for all three linkages")
+    r = rng.integers(0, 8, size=(300, 300)) / 8
+    grid300 = torch.tensor(np.maximum(r, r.T), dtype=torch.float32,
+                           device=dev)
+    r = rng.uniform(size=(41, 41))
+    nan41 = torch.tensor((r + r.T) / 2, dtype=torch.float32, device=dev)
+    nan41[2, 7] = nan41[7, 2] = nan41[11, 30] = float("nan")
+    for m in (s300, grid300, nan41):
+        m.fill_diagonal_(float("-inf"))
+    for name, m in (("random 300", s300), ("1/8 grid 300", grid300),
+                    ("NaN 41", nan41)):
+        for linkage in LINKAGES:
+            m_k, h_k, c_k = lk_ops._nn_chain_counted(m.clone(), linkage)
+            m_p, h_p, t_p = nn_chain_ref(m.clone(), linkage)
+            model = nn_chain_cached_ref(m.cpu(), linkage)[3]
+            require(int(c_k[0]) == int(t_p) and torch.equal(m_k, m_p)
+                    and torch.equal(h_k, h_p),
+                    f"nn_chain {name} {linkage}: differs from the plain loop")
+            require(c_k.tolist()[1:] == [model["iterations"],
+                                         model["rescans"]],
+                    f"nn_chain {name} {linkage}: counters {c_k.tolist()} "
+                    f"differ from the plain model's {model}")
+            require(name.startswith("NaN") or int(t_p) == m.shape[0] - 1,
+                    f"nn_chain {name} {linkage}: {int(t_p)} merges")
+            if name == "random 300":
+                for t in (1, 4, 300):
+                    require(torch.equal(cut_device(m_k, h_k, 300, t),
+                                        cut_device(m_p, h_p, 300, t)),
+                            f"nn_chain {linkage}: labels differ at T={t}")
+    require(all(lk_ops.kernel_chain_plan(n) == chain_plan(n)
+                for n in (2, 1024, 11019, 11020, 20000)),
+            "nn_chain: the C side's plan differs from chain_plan")
+    print("  nn_chain (random and 1/8-grid R of 300 leaves, NaN R of 41): "
+          "merges, heights and step counts equal to the plain loop (exact), "
+          "iterations and rescans to the plain model of the cache, for all "
+          "three linkages")
+    n_big, blocks = 20000, 4
+    lab = torch.arange(n_big, device=dev) * blocks // n_big
+    big = torch.rand((n_big, n_big), generator=torch.Generator(
+        device=dev).manual_seed(SEED), device=dev) * 0.1
+    big = (big + big.T) / 2 + torch.where(lab[:, None] == lab[None, :], 0.8,
+                                          0.1)
+    big.fill_diagonal_(float("-inf"))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_k, h_k, c_k = lk_ops._nn_chain_counted(big)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    del big
+    big_ari = clu.adjusted_rand_index(
+        cut_device(m_k, h_k, n_big, blocks).cpu().numpy(), lab.cpu().numpy())
+    require(int(c_k[0]) == n_big - 1, f"nn_chain at {n_big} leaves: "
+            f"{int(c_k[0])} merges")
+    require(big_ari == 1.0, f"nn_chain at {n_big} leaves: the cut at "
+            f"{blocks} misses the blocks (ARI {big_ari})")
+    summary["phase2_nn_chain_20000"] = dict(
+        route=chain_plan(n_big).route, s=big_s, iterations=int(c_k[1]),
+        rescans=int(c_k[2]))
+    print(f"  nn_chain ({n_big} leaves, block-structured R, "
+          f"{chain_plan(n_big).route} route): {n_big - 1} merges in "
+          f"{big_s:.3f} s ({int(c_k[1])} iterations, {int(c_k[2])} rows "
+          f"rescanned), the {blocks} blocks recovered at T={blocks}")
     # featurize_gram: fp32 to 1e-5 x max; bf16 against the plain
     # bf16-rounding version at the reference's 2e-2 x max.  The first
     # case also holds the fp32 kernel to 1/8 of the 1xTF32 emulation's
@@ -1060,18 +1189,36 @@ def main() -> int:
           f"(tolerance 2^-8); bf16 compute's gap to the fp32 oracle "
           f"{wkv_gaps['kernel']:.3e} x max, the plain chunk form's "
           f"{wkv_gaps['plain']:.3e}")
-    # linear_scan: D off the 32-channel warp, S = 1 and long S; the plain
-    # version's separately rounded multiply and add: equal.
-    for b_, s_, d_ in [(1, 1, 100), (2, 77, 1000), (1, 4096, 4097)]:
-        la_ = -torch.exp(randn(b_, s_, d_) - 1)
-        x_, h0_ = randn(b_, s_, d_), randn(b_, d_)
+    # linear_scan: D off the 32-channel warp, S = 1 and long S, B = 3 with
+    # S off the 128-token stage, D % 4 != 0 and a view 4 bytes off 16
+    # (the 4-byte cp.async route); the plain version's separately rounded
+    # multiply and add: equal, and two runs bit-equal.
+    for b_, s_, d_, off in [(1, 1, 100, 0), (2, 77, 1000, 0),
+                            (1, 4096, 4097, 0), (3, 77, 512, 0),
+                            (2, 300, 1024, 1)]:
+        n_el = b_ * s_ * d_
+        buf = torch.empty(2 * n_el + off, device=dev)
+        la_ = buf[off:off + n_el].view(b_, s_, d_).copy_(
+            -torch.exp(randn(b_, s_, d_) - 1))
+        x_ = buf[off + n_el:].view(b_, s_, d_).copy_(randn(b_, s_, d_))
+        h0_ = randn(b_, d_)
+        route = linear_scan_plan(b_, s_, d_, la_.data_ptr() % 16 == 0
+                                 and x_.data_ptr() % 16 == 0).route
         got_h, got_last = linear_scan(la_, x_, h0_)
         want_h, want_last = linear_scan_ref(la_, x_, h0_)
+        again_h, again_last = linear_scan(la_, x_, h0_)
         require(torch.equal(got_h, want_h) and torch.equal(got_last,
                                                            want_last),
-                f"linear_scan ({b_}, {s_}, {d_}) differs from plain")
-    print("  linear_scan: (1, 1, 100), (2, 77, 1000), (1, 4096, 4097) equal "
-          "to plain (exact)")
+                f"linear_scan ({b_}, {s_}, {d_}) {route} differs from plain")
+        require(torch.equal(got_h, again_h)
+                and torch.equal(got_last, again_last),
+                f"linear_scan ({b_}, {s_}, {d_}): two runs differ")
+        print(f"  linear_scan ({b_}, {s_}, {d_}){' misaligned' if off else ''}"
+              f" ({route}): equal to plain (exact), two runs bit-equal")
+    require(all(rs_ops.kernel_scan_plan(*a) == linear_scan_plan(*a)
+                for a in [(1, 4096, 4096, True), (1, 4096, 4097, True),
+                          (3, 77, 512, False), (1, 0, 8, True)]),
+            "linear_scan: the C side's plan differs from linear_scan_plan")
     summary["phase2_lm_rel_err"] = lm_errs
     phase_done("phase 2")
 
@@ -1746,25 +1893,68 @@ def main() -> int:
     def reset():
         work.copy_(prepared)
 
-    m_k, h_k, t_k = nn_chain(prepared.clone())
+    m_k, h_k, c_k = lk_ops._nn_chain_counted(prepared.clone())
     t_plain0 = time.perf_counter()
     m_p, h_p, t_p = nn_chain_ref(prepared.clone())
     torch.cuda.synchronize()
     t_plain = (time.perf_counter() - t_plain0) * 1e3
-    require(int(t_k) == int(t_p) == n_ - 1 and torch.equal(m_k, m_p)
+    require(int(c_k[0]) == int(t_p) == n_ - 1 and torch.equal(m_k, m_p)
             and torch.equal(h_k, h_p),
             "nn_chain at the main-path R differs from the plain loop")
-    print(f"  nn_chain ({n_} leaves): merges and heights equal to the "
-          f"plain loop (exact)")
+    iters, rescans = int(c_k[1]), int(c_k[2])
+    print(f"  nn_chain ({n_} leaves): merges, heights and step count equal "
+          f"to the plain loop (exact); {iters} iterations ({n_ - 1} merges, "
+          f"{iters - n_ + 1} chain extensions), {rescans} rows rescanned")
     chain_err = max_err(torch, h_k, h_p)
     t_kernel = time_ms(torch, lambda: nn_chain(work), 5, setup=reset)
+
+    def chain_call():
+        reset()
+        lk_ops._nn_chain_counted(work)
+
+    t_dev, dev_how, dev_names = device_ms(torch, chain_call, 5)
+    dev_names = {k: ms for k, ms in dev_names.items() if "nn_" in k}
+    if dev_names:  # the chain's kernels alone, without the reset's copy
+        t_dev = sum(dev_names.values())
+    else:
+        dev_how += ", the reset's copy of R included"
     b, by = bound_ms(4.0 * n_ * (n_ - 1), 4.0 * n_ * n_ + 12.0 * (n_ - 1))
+    # The probe builds of linkage.cu: the chain on the scratch route at
+    # this n, timed as the wrapper is, and the loop's cycles by phase.
+    probes = chain_probe_libs()
+    for name in ("scratch", "clocks"):
+        got = probe_chain(torch, probes[name], prepared.clone())
+        require(all(torch.equal(x, y) for x, y in zip(got, (m_k, h_k, c_k))),
+                f"nn_chain's {name} probe build differs from the kernel")
+    t_scratch = time_ms(
+        torch, lambda: probe_chain(torch, probes["scratch"], work), 5,
+        setup=reset)
+    clocks = torch.zeros((len(CHAIN_PHASES),), dtype=torch.int64)
+    build.check(probes["clocks"].repro_nn_chain_clocks(clocks.data_ptr()),
+                "nn_chain clocks")
+    clocks = [int(c) for c in clocks]
+    print(f"  nn_chain on the scratch route (probe build): {t_scratch:.3f} "
+          f"ms a call against {t_kernel:.3f} in shared memory; cycles "
+          f"(thread 0, probe build; an extension's a call, the rest a "
+          f"merge, share of all): " + ", ".join(
+              f"{name} {c / max(iters - n_ + 1 if k == 0 else n_ - 1, 1):.0f} "
+              f"({c / sum(clocks):.1%})"
+              for k, (name, c) in enumerate(zip(CHAIN_PHASES, clocks))))
     kernels.append(dict(
         name="linkage", route="cuda",
         source="src/repro_torch/kernels/csrc/linkage.cu",
         replaces="src/repro/kernels/linkage/linkage.py:68",
         launches=launches["linkage"], max_abs_err=chain_err, ms=t_kernel,
-        plain_ms=t_plain, bound_ms=b, bound_by=by, library_ms=None))
+        device_ms=t_dev, device_time_by=dev_how, plain_ms=t_plain,
+        bound_ms=b, bound_by=by, library_ms=None, iterations=iters,
+        rescans=rescans, us_per_iteration=t_dev * 1e3 / iters,
+        chain_plan=chain_plan(n_).route, scratch_route_ms=t_scratch,
+        phase_cycles=dict(zip(CHAIN_PHASES, clocks))))
+    print(f"  nn_chain: {t_kernel:.3f} ms a call, device time {t_dev:.4f} ms "
+          f"({dev_how}: " + ", ".join(f"{k[:40]} {ms:.4f}" for k, ms in
+                                      dev_names.items())
+          + f"), {t_dev * 1e3 / iters:.3f} us an iteration over {iters}; "
+          f"byte bound {b:.4f} ms")
 
     # featurize_gram at the raw path's shapes, all rows in one launch:
     # fp32 (the main path's compute dtype) as 3xTF32, held to 1e-5 x
@@ -2119,7 +2309,8 @@ def main() -> int:
         shape=[wb, ws, wh, whd], compute_dtype="bf16",
         fp32_compute=wkv_rows["fp32"]))
 
-    # linear_scan at the hybrid prefill's shape (B=1, S=4096, D=4096).
+    # linear_scan at the hybrid prefill's shape (B=1, S=4096, D=4096), on
+    # its TMA route.
     lb, (ls, ld) = HYBRID_PREFILL[0], (HYBRID_PREFILL[1], 4096)
     la_ = -torch.exp(randn(lb, ls, ld) - 1)
     x_, h0_ = randn(lb, ls, ld), randn(lb, ld)
@@ -2127,17 +2318,27 @@ def main() -> int:
     want_h, want_last = linear_scan_ref(la_, x_, h0_)
     require(torch.equal(got_h, want_h) and torch.equal(got_last, want_last),
             "linear_scan at the prefill shape differs from plain")
-    print(f"  linear_scan ({lb}, {ls}, {ld}): equal to plain (exact)")
-    b, by = bound_ms(2.0 * lb * ls * ld,
-                     4.0 * (3 * lb * ls * ld + 2 * lb * ld))
+    scan_plan = linear_scan_plan(lb, ls, ld)
+    print(f"  linear_scan ({lb}, {ls}, {ld}): equal to plain (exact), "
+          f"{scan_plan.route} route, {scan_plan.tokens} tokens x "
+          f"{scan_plan.stages} stages, {scan_plan.blocks} blocks")
+    scan_bytes = 4.0 * (3 * lb * ls * ld + 2 * lb * ld)
+    b, by = bound_ms(2.0 * lb * ls * ld, scan_bytes)
+    t_kernel = time_ms(torch, lambda: linear_scan(la_, x_, h0_), 10)
+    t_dev, dev_how, _ = device_ms(torch,
+                                  lambda: linear_scan(la_, x_, h0_))
     kernels.append(dict(
         name="linear_scan", route="cuda",
         source="src/repro_torch/kernels/csrc/recurrent_scan.cu",
         replaces="src/repro/kernels/recurrent_scan/recurrent_scan.py:166",
         launches=launches_h["linear_scan"], max_abs_err=0.0,
-        ms=time_ms(torch, lambda: linear_scan(la_, x_, h0_), 10),
+        ms=t_kernel, device_ms=t_dev, device_time_by=dev_how,
         plain_ms=time_ms(torch, lambda: linear_scan_ref(la_, x_, h0_), 2),
-        bound_ms=b, bound_by=by, library_ms=None, shape=[lb, ls, ld]))
+        bound_ms=b, bound_by=by, library_ms=None, shape=[lb, ls, ld],
+        load_route=scan_plan.route, gb_per_s=scan_bytes / t_dev / 1e6))
+    print(f"  linear_scan: {t_kernel:.4f} ms a call, device time "
+          f"{t_dev:.4f} ms ({dev_how}), {scan_bytes / t_dev / 1e6:.0f} GB/s, "
+          f"bound {b:.4f} by {by}")
     for e in (dense, hybrid):
         print(f"  flash_attention shape {e['shape']} window {e['window']}: "
               f"{e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "

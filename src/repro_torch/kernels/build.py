@@ -8,7 +8,8 @@ is loaded with ``ctypes``; nothing here includes PyTorch's headers, so a
 full build takes seconds.  The sources share three headers beside them:
 ``common.cuh`` (the C interface), ``mma.cuh`` (``mma.sync``, ``cp.async``
 and the 3xTF32 split) and ``wgmma.cuh`` (mbarriers, TMA and ``wgmma``,
-for ``gram.cu`` and ``eigproject.cu``).  A stamp holding the hash of every
+for ``gram.cu``, ``eigproject.cu`` and the scan in
+``recurrent_scan.cu``).  A stamp holding the hash of every
 file under ``csrc`` and the flags lets a second process reuse a finished
 build.
 
@@ -44,8 +45,8 @@ _SIGNATURES = {
     "repro_eigproject_split": (_P, _P, _I, _I, _I, _P),
     "repro_eigproject_plan": (_I, _P, _P),
     "repro_linkage_step": (_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _P),
-    "repro_nn_chain": (_P, _I, _I, _I, _P, _P, _P, _P),
-    "repro_nn_chain_smem": (_I,),
+    "repro_nn_chain": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "repro_nn_chain_plan": (_I, _P, _P),
     "repro_featurize_gram": (_P, _L, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                              _I, _P),
     "repro_featurize_gram_smem": (_I, _I, _I, _I),
@@ -64,11 +65,13 @@ _SIGNATURES = {
                                  _I, _I, _P),
     "repro_wkv": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                   _P),
-    "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "repro_linear_scan": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_linear_scan_plan": (_I, _I, _I, _I, _P, _P, _P),
     "repro_error_string": (_I,),
 }
-_RESTYPES = {"repro_nn_chain_smem": ctypes.c_int64,
+_RESTYPES = {"repro_nn_chain_plan": ctypes.c_int64,
              "repro_gram_plan": ctypes.c_int64,
+             "repro_linear_scan_plan": ctypes.c_int64,
              "repro_eigproject_plan": ctypes.c_int64,
              "repro_featurize_gram_smem": ctypes.c_int64,
              "repro_gram_project_smem": ctypes.c_int64,

@@ -39,19 +39,42 @@
 //
 // linear_scan replaces recurrent_scan.py::linear_scan_pallas (pallas_call
 // at :187), which rglru.py reaches with impl="pallas": per channel,
-// h_t = e^{log_a_t} h_{t-1} + x_t.  Bound: bytes (two reads and one
-// write a step, two operations).  Design: one thread per (batch,
-// channel), warps of 32 neighbouring channels so every load is
-// coalesced, one warp a block so that B * D / 32 blocks spread over the
-// SMs, and the next kScanAhead steps' operands loaded before they are
-// needed (the recurrence itself is a dependent chain of a multiply and
-// an add).  Separately rounded multiply and add, as the plain version.
+// h_t = e^{log_a_t} h_{t-1} + x_t, with a separately rounded multiply and
+// add, as the plain version (bit for bit).  Bound on the H100 at the
+// hybrid prefill (B = 1, S = 4096, D = 4096): two reads and one write of
+// 64 MiB, 60.1 us at 3.35 TB/s; the recurrence's dependent chain (one
+// multiply and one add a token, about 8 cycles) is about 20 us, and the
+// exponent does not depend on h.  So the kernel has to keep the memory
+// busy: by Little's law over 26 KB in flight on each SM, where a warp's
+// own loads a few steps ahead kept about 4 KB.
+// Design: one block per (batch, 32-channel tile), one warp, a lane a
+// channel.  The operands come through a ring of stages in shared memory
+// (128 tokens x 32 channels of log_a and of x, 32 KB a stage, 4 stages):
+// a lane issues the TMA loads (a 3-D tensor map over (B, S, D), boxes
+// zero-filled past S and D, completion on an mbarrier) for stage k + 4
+// as soon as stage k is consumed, so three stages (96 KB) are in flight
+// while one is scanned.  The scan reads 16 tokens from shared memory (32
+// neighbouring floats a token: no bank conflict), forms their exponents
+// ahead of the chain, then steps, writing h into one of two output
+// stages in shared memory; a lane stores each full output stage with one
+// TMA bulk copy (clipped at S and D), so no store waits on the
+// recurrence and the warp issues no store per token (a warp storing its
+// own 128-byte row of h a token reaches about a third of the memory's
+// rate).
+// Where TMA cannot be used (D % 4 != 0, or a base off 16 bytes) every
+// lane fills its own channel of the same ring with 4-byte cp.async and
+// stores its h directly.  Tokens past S are never stepped or stored.  The
+// plan (tokens, stages, route, shared memory) is repro_linear_scan_plan,
+// mirrored by kernels/recurrent_scan/ops.py::linear_scan_plan.
 #include <cuda_bf16.h>
 
 #include <type_traits>
 
+#include <string.h>
+
 #include "common.cuh"
 #include "mma.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -406,37 +429,130 @@ int launch_wkv_hd(int hd, const void* r, const void* k, const void* v,
   return (int)cudaErrorInvalidValue;
 }
 
-constexpr int kScanThreads = 32;  // one warp: 32 neighbouring channels
-constexpr int kScanAhead = 16;    // steps whose operands are loaded early
+constexpr int kScanLanes = 32;    // channels a block: a warp, a lane each
+constexpr int kScanUnroll = 16;   // tokens whose exponents go ahead
+constexpr int kScanTokens = 128;  // tokens a stage (the plan's)
+constexpr int kScanStages = 4;    // stages in the ring (the plan's)
 
-__global__ void __launch_bounds__(kScanThreads)
-linear_scan_kernel(const float* __restrict__ log_a,
-                   const float* __restrict__ x, const float* __restrict__ h0,
-                   float* __restrict__ h, float* __restrict__ h_last, int B,
-                   int S, int D) {
-  const int64_t idx = (int64_t)blockIdx.x * kScanThreads + threadIdx.x;
-  if (idx >= (int64_t)B * D) return;
-  const int64_t b = idx / D;
-  const int64_t base = b * S * D + (idx - b * D);
-  float hv = h0[idx];
-  for (int t0 = 0; t0 < S; t0 += kScanAhead) {
-    float la[kScanAhead], xv[kScanAhead];
-#pragma unroll
-    for (int s = 0; s < kScanAhead; ++s) {
-      const int t = t0 + s;
-      la[s] = t < S ? log_a[base + (int64_t)t * D] : 0.f;
-      xv[s] = t < S ? x[base + (int64_t)t * D] : 0.f;
+constexpr int kScanStage = kScanTokens * kScanLanes;  // floats an array
+
+// Shared memory of a scan block: the ring (log_a and x, a stage of each
+// a slot), two output stages, then one mbarrier a slot.
+constexpr int64_t kScanSmem =
+    (int64_t)kScanStages * (2 * kScanStage * 4 + 8) + 2 * kScanStage * 4;
+
+// Stage k of a block's operands into its slot of the ring: by TMA (lane
+// 0, both boxes on the slot's mbarrier), or each lane its own channel by
+// 4-byte cp.async, zero-filled past S and D.
+template <bool kTma>
+__device__ __forceinline__ void scan_issue(
+    const CUtensorMap* map_a, const CUtensorMap* map_x,
+    const float* __restrict__ log_a, const float* __restrict__ x, float* ring,
+    uint64_t* full, int k, int b, int c0, int S, int D) {
+  const int lane = threadIdx.x;
+  const int slot = k % kScanStages;
+  float* sa = ring + (size_t)slot * 2 * kScanStage;
+  float* sx = sa + kScanStage;
+  if (kTma) {
+    if (lane == 0) {
+      fence_proxy_async();  // the slot's earlier reads before the copy
+      mbar_expect_tx(&full[slot], 2 * kScanStage * 4);
+      tma_load_3d(sa, map_a, &full[slot], c0, k * kScanTokens, b);
+      tma_load_3d(sx, map_x, &full[slot], c0, k * kScanTokens, b);
     }
+    return;
+  }
+  const int c = c0 + lane;
+  const int64_t row0 = (int64_t)b * S + (int64_t)k * kScanTokens;
+  for (int u = 0; u < kScanTokens; ++u) {
+    const bool ok = c < D && k * kScanTokens + u < S;
+    const int64_t off = ok ? (row0 + u) * D + c : 0;
+    cp_async4(sa + u * kScanLanes + lane, log_a + off, ok);
+    cp_async4(sx + u * kScanLanes + lane, x + off, ok);
+  }
+  cp_async_commit();
+}
+
+// kTma: operands by TMA, and each stage of h staged in shared memory and
+// stored by TMA, one bulk copy a stage; else 4-byte cp.async in and a
+// coalesced store a token out.
+template <bool kTma>
+__global__ void __launch_bounds__(kScanLanes)
+linear_scan_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_x,
+                   const __grid_constant__ CUtensorMap map_h,
+                   const float* __restrict__ log_a,
+                   const float* __restrict__ x, const float* __restrict__ h0,
+                   float* __restrict__ h, float* __restrict__ h_last, int S,
+                   int D, int tiles) {
+  extern __shared__ __align__(128) unsigned char scan_smem[];
+  float* ring = reinterpret_cast<float*>(scan_smem);
+  float* out = ring + (size_t)kScanStages * 2 * kScanStage;
+  uint64_t* full = reinterpret_cast<uint64_t*>(out + 2 * kScanStage);
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x - b * tiles) * kScanLanes;
+  const int c = c0 + lane;
+  const bool live = c < D;
+  const int n_stages = (S + kScanTokens - 1) / kScanTokens;
+  if (kTma && lane == 0) {
+    for (int k = 0; k < kScanStages; ++k) mbar_init(&full[k], 1);
+    mbar_init_fence();
+  }
+  __syncwarp();
+  for (int k = 0; k < min(kScanStages, n_stages); ++k)
+    scan_issue<kTma>(&map_a, &map_x, log_a, x, ring, full, k, b, c0, S, D);
+
+  float hv = live ? h0[(int64_t)b * D + c] : 0.f;
+  for (int k = 0; k < n_stages; ++k) {
+    const int slot = k % kScanStages;
+    if (kTma) {
+      mbar_wait(&full[slot], (k / kScanStages) & 1);
+      if (lane == 0) bulk_wait_read<1>();  // stage k - 2's store has read
+      __syncwarp();                         // its output buffer
+    } else {
+      cp_async_wait_n(min(kScanStages - 1, n_stages - 1 - k));
+    }
+    const float* sa = ring + (size_t)slot * 2 * kScanStage + lane;
+    const float* sx = sa + kScanStage;
+    float* so = out + (size_t)(k % 2) * kScanStage + lane;
+    const int count = min(kScanTokens, S - k * kScanTokens);
+    float* hp = h + ((int64_t)b * S + (int64_t)k * kScanTokens) * D + c;
+    int u0 = 0;
+    for (; u0 + kScanUnroll <= count; u0 += kScanUnroll) {
+      float e[kScanUnroll], xv[kScanUnroll];
 #pragma unroll
-    for (int s = 0; s < kScanAhead; ++s) {
-      const int t = t0 + s;
-      if (t < S) {
-        hv = __fadd_rn(__fmul_rn(expf(la[s]), hv), xv[s]);
-        h[base + (int64_t)t * D] = hv;
+      for (int q = 0; q < kScanUnroll; ++q) {
+        e[q] = expf(sa[(u0 + q) * kScanLanes]);
+        xv[q] = sx[(u0 + q) * kScanLanes];
+      }
+#pragma unroll
+      for (int q = 0; q < kScanUnroll; ++q) {
+        hv = __fadd_rn(__fmul_rn(e[q], hv), xv[q]);
+        if (kTma)
+          so[(u0 + q) * kScanLanes] = hv;
+        else if (live)
+          hp[(int64_t)(u0 + q) * D] = hv;
       }
     }
+    for (; u0 < count; ++u0) {
+      hv = __fadd_rn(__fmul_rn(expf(sa[u0 * kScanLanes]), hv),
+                     sx[u0 * kScanLanes]);
+      if (kTma)
+        so[u0 * kScanLanes] = hv;
+      else if (live)
+        hp[(int64_t)u0 * D] = hv;
+    }
+    if (kTma) fence_proxy_async();  // this lane's h before the bulk store
+    __syncwarp();                   // and every lane is done with the slot
+    if (kTma && lane == 0)
+      tma_store_3d(&map_h, so - lane, c0, k * kScanTokens, b);
+    if (k + kScanStages < n_stages)
+      scan_issue<kTma>(&map_a, &map_x, log_a, x, ring, full, k + kScanStages,
+                       b, c0, S, D);
   }
-  h_last[idx] = hv;
+  if (live) h_last[(int64_t)b * D + c] = hv;
+  if (kTma && lane == 0) bulk_wait_all();
 }
 
 }  // namespace
@@ -464,16 +580,61 @@ REPRO_EXPORT int repro_wkv(const void* r, const void* k, const void* v,
                                      S, H, st);
 }
 
-// log_a, x, h (B, S, D) and h0, h_last (B, D), fp32 contiguous.
+// The scan's plan for (B, S, D): tokens a stage and stages (through the
+// pointers), the route (1: TMA, where D % 4 == 0, S > 0 and log_a, x and
+// h start 16-byte aligned; 0: 4-byte cp.async), and the block's shared
+// memory (returned).  kernels/recurrent_scan/ops.py::linear_scan_plan
+// computes the same.
+REPRO_EXPORT int64_t repro_linear_scan_plan(int B, int S, int D, int aligned,
+                                            int* tokens, int* stages,
+                                            int* tma) {
+  (void)B;
+  *tokens = kScanTokens;
+  *stages = kScanStages;
+  *tma = aligned && D % 4 == 0 && S > 0;
+  return kScanSmem;
+}
+
+// log_a, x, h (B, S, D) and h0, h_last (B, D), fp32 contiguous; tma as
+// the plan gives it.
 REPRO_EXPORT int repro_linear_scan(const float* log_a, const float* x,
                                    const float* h0, float* h, float* h_last,
-                                   int B, int S, int D, void* stream) {
-  const int64_t n = (int64_t)B * D;
-  if (n <= 0) return 0;
-  const int64_t blocks = (n + kScanThreads - 1) / kScanThreads;
+                                   int B, int S, int D, int tma,
+                                   void* stream) {
+  if (B <= 0 || D <= 0) return 0;
+  if (S < 0) return (int)cudaErrorInvalidValue;
+  const int tiles = repro_ceil_div(D, kScanLanes);
+  const int64_t blocks = (int64_t)B * tiles;
   if (blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
-  linear_scan_kernel<<<(unsigned)blocks, kScanThreads, 0,
-                       (cudaStream_t)stream>>>(log_a, x, h0, h, h_last, B, S,
-                                               D);
+  CUtensorMap map_a, map_x, map_h;
+  memset(&map_a, 0, sizeof(map_a));
+  memset(&map_x, 0, sizeof(map_x));
+  memset(&map_h, 0, sizeof(map_h));
+  if (tma) {
+    if (D % 4 || S == 0 || reinterpret_cast<uintptr_t>(log_a) % 16 ||
+        reinterpret_cast<uintptr_t>(x) % 16 ||
+        reinterpret_cast<uintptr_t>(h) % 16)
+      return (int)cudaErrorMisalignedAddress;
+    const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {(cuuint64_t)D * 4,
+                                   (cuuint64_t)S * D * 4};
+    const cuuint32_t box[3] = {kScanLanes, kScanTokens, 1};
+    int rc = encode_f32_3d(&map_a, log_a, dims, strides, box,
+                           CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (!rc)
+      rc = encode_f32_3d(&map_x, x, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (!rc)
+      rc = encode_f32_3d(&map_h, h, dims, strides, box,
+                         CU_TENSOR_MAP_SWIZZLE_NONE);
+    if (rc) return rc;
+  }
+  auto kernel = tma ? linear_scan_kernel<true> : linear_scan_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kScanSmem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<(unsigned)blocks, kScanLanes, (size_t)kScanSmem,
+           (cudaStream_t)stream>>>(map_a, map_x, map_h, log_a, x, h0, h,
+                                   h_last, S, D, tiles);
   return (int)cudaGetLastError();
 }

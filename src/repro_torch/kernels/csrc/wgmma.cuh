@@ -1,5 +1,6 @@
 // Hopper building blocks (PTX) for the kernels that run their products
-// on wgmma with operands in shared memory: mbarriers, TMA tensor loads,
+// on wgmma with operands in shared memory, and for the scan's ring:
+// mbarriers, TMA tensor loads and stores,
 // the proxy fence, the 128-byte-swizzle operand descriptor and the
 // m64n128k8 .tf32 product, plus the host side's tensor-map encoder.
 //
@@ -77,6 +78,32 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2)
       : "memory");
+}
+
+// A box of shared memory to the 3-D tensor map at (c0, c1, c2), innermost
+// first (elements outside the tensor are not written), as one bulk group
+// of this thread's.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (the source may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until every bulk group of this thread's is complete.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Generic-proxy writes to shared memory become visible to wgmma.

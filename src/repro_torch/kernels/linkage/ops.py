@@ -2,12 +2,16 @@
 
 ``linkage_step`` keeps the reference's one-step contract
 (``src/repro/kernels/linkage/ops.py``).  ``nn_chain`` runs the whole
-NN-chain loop of ``core/cluster_engine.py`` in one persistent
-single-block launch: the reference ran its step kernel inside a jitted
-``while_loop``, and a host loop here would pay a launch and a round trip
-for each of about 4n steps.
+NN-chain loop of ``core/cluster_engine.py`` in one call: a first pass
+that caches every row's nearest neighbour, then one persistent block for
+the chain (``ref.nn_chain_cached_ref`` is the plain model of its cache).
+The reference ran its step kernel inside a jitted ``while_loop``; a host
+loop here would pay a launch and a round trip for each of about 3n steps.
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -15,8 +19,40 @@ from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.linkage.ref import (LINKAGES, linkage_step_ref,
                                              max_iterations, nn_chain_ref)
 
-#: Shared memory a block may use on the H100 (opt-in maximum).
-_MAX_SMEM = 232448
+#: Shared memory a block may use on the H100 (opt-in maximum), less the
+#: chain kernel's reserve for its static arrays.
+SMEM_LIMIT = 232448 - 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """Where the chain kernel keeps its per-leaf state for ``n`` leaves
+    (the nearest-neighbour cache, sizes, chain, rescan list and alive
+    flags, ``scratch`` bytes of device scratch, which the first pass
+    fills): ``route`` "smem" (copied into ``smem`` bytes of shared
+    memory) where it fits, else "scratch" (read in place, ``smem`` 0)."""
+    route: str
+    smem: int
+    scratch: int
+
+
+def chain_plan(n: int) -> ChainPlan:
+    if n < 0:
+        raise ValueError(f"n must be non-negative, got {n}")
+    scratch = 4 * (5 * n + 1) + -(-n // 16) * 16
+    if scratch <= SMEM_LIMIT:
+        return ChainPlan("smem", scratch, scratch)
+    return ChainPlan("scratch", 0, scratch)
+
+
+def kernel_chain_plan(n: int) -> ChainPlan:
+    """The C side's plan for ``n`` leaves, to hold ``chain_plan`` against
+    (builds the kernel library)."""
+    route, scratch = ctypes.c_int(), ctypes.c_int64()
+    smem = build.library().repro_nn_chain_plan(n, ctypes.byref(route),
+                                               ctypes.byref(scratch))
+    return ChainPlan("smem" if route.value else "scratch", smem,
+                     scratch.value)
 
 
 def _linkage_code(linkage: str) -> int:
@@ -63,40 +99,62 @@ def linkage_step(row_a: torch.Tensor, row_b: torch.Tensor, size_a, size_b,
     return row, idx[0], val[0]
 
 
+def _chain_input(s: torch.Tensor, linkage: str) -> int:
+    """The linkage's code; raises unless ``s`` is square."""
+    code = _linkage_code(linkage)
+    if s.ndim != 2 or s.shape[0] != s.shape[1]:
+        raise ValueError(f"linkage matrix must be square, got "
+                         f"{tuple(s.shape)}")
+    return code
+
+
 def nn_chain(s: torch.Tensor, linkage: str = "average"
              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """NN-chain HAC over a prepared linkage matrix ``s (n, n)`` f32 with
-    the diagonal at ``-inf``.  ``s`` is updated in place: pass a copy.
+    the diagonal at ``-inf``.  ``s`` is overwritten: pass a copy.  On the
+    card the kernel writes merged rows and columns at live entries only,
+    so ``s`` afterwards is not the plain loop's (which sets dead rows and
+    columns to ``-inf``); nothing reads it after the call.
 
     Returns ``(merge_rows (n-1, 2) i32, heights (n-1,) f32, steps)`` in
     chain order; ``steps`` (0-dim int32, on ``s``'s device) counts the
     merges done and falls short of ``n - 1`` only on NaN input.
     """
-    code = _linkage_code(linkage)
-    if s.ndim != 2 or s.shape[0] != s.shape[1]:
-        raise ValueError(f"linkage matrix must be square, got "
-                         f"{tuple(s.shape)}")
+    _chain_input(s, linkage)
     if not dispatch.on_cuda(s):
         return nn_chain_ref(s, linkage)
+    merges, heights, counters = _nn_chain_counted(s, linkage)
+    return merges, heights, counters[0]
+
+
+def _nn_chain_counted(s: torch.Tensor, linkage: str = "average"
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``nn_chain``'s kernel with all of its counters, on a CUDA ``s``:
+    ``(merge_rows, heights, counters)``, ``counters (3,)`` int32 = merges
+    done, loop iterations, rows rescanned (``ref.nn_chain_cached_ref``'s
+    ``steps`` and ``stats`` on the CPU)."""
+    code = _chain_input(s, linkage)
+    if not dispatch.on_cuda(s):
+        raise ValueError("the nn_chain kernel's counters need a CUDA tensor")
     if s.dtype != torch.float32 or not s.is_contiguous():
         raise TypeError("the nn_chain kernel updates a contiguous float32 "
                         "matrix in place")
     n = s.shape[0]
-    lib = build.library()
-    if lib.repro_nn_chain_smem(n) > _MAX_SMEM:
-        raise ValueError(f"n={n} leaves exceed the chain kernel's shared "
-                         f"memory ({_MAX_SMEM} bytes)")
     merges = torch.zeros((max(n - 1, 0), 2), dtype=torch.int32,
                          device=s.device)
     heights = torch.zeros((max(n - 1, 0),), dtype=torch.float32,
                           device=s.device)
-    counters = torch.zeros((2,), dtype=torch.int32, device=s.device)
+    counters = torch.zeros((3,), dtype=torch.int32, device=s.device)
     if n < 2:
-        return merges, heights, counters[0]
+        return merges, heights, counters
+    scratch = torch.empty((chain_plan(n).scratch,), dtype=torch.uint8,
+                          device=s.device)
+    lib = build.library()
     with torch.cuda.device(s.device):
         rc = lib.repro_nn_chain(s.data_ptr(), n, code, max_iterations(n),
                                 merges.data_ptr(), heights.data_ptr(),
-                                counters.data_ptr(), dispatch.stream_of(s))
+                                counters.data_ptr(), scratch.data_ptr(),
+                                dispatch.stream_of(s))
     build.check(rc, "nn_chain")
     dispatch.count_launch("linkage")
-    return merges, heights, counters[0]
+    return merges, heights, counters

@@ -17,9 +17,14 @@ The wkv kernel computes the chunk form over sub-chunks of 16 tokens
 rounds and runs its products on bf16 tensor cores, under ``"fp32"`` it
 keeps fp32 products; the state is fp32 under both.  The reference's
 ``linear_scan`` takes a ``compute_dtype`` that its only caller leaves at
-fp32; the port has none, and its scan steps in fp32.
+fp32; the port has none, and its scan steps in fp32.  The scan kernel
+streams its operands through a ring of stages in shared memory, by TMA
+where it can (``linear_scan_plan``).
 """
 from __future__ import annotations
+
+import ctypes
+import dataclasses
 
 import torch
 
@@ -27,6 +32,50 @@ from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.recurrent_scan.ref import (COMPUTE_DTYPES,
                                                     linear_scan_ref,
                                                     wkv_chunked_ref)
+
+#: Channels a scan block owns (one warp, a lane a channel), tokens a
+#: stage of its ring, and stages in the ring.
+SCAN_CHANNELS, SCAN_TOKENS, SCAN_STAGES = 32, 128, 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """The scan kernel's launch for ``(b, s, d)``: ``tokens`` a stage,
+    ``stages`` in the ring, the ``route`` ("tma": operands in and h out by
+    TMA, where a row is a multiple of 16 bytes, ``s > 0`` and the operands
+    start 16-byte aligned; else "cp.async4": 4-byte ``cp.async`` in and
+    plain stores out), the block's ``smem`` (the ring, two output stages
+    and the barriers) and the ``blocks`` (batch x 32-channel tiles)."""
+    tokens: int
+    stages: int
+    route: str
+    smem: int
+    blocks: int
+
+
+def linear_scan_plan(b: int, s: int, d: int, aligned: bool = True
+                     ) -> ScanPlan:
+    if min(b, s, d) < 0:
+        raise ValueError(f"bad shape ({b}, {s}, {d})")
+    route = "tma" if aligned and d % 4 == 0 and s > 0 else "cp.async4"
+    stage = SCAN_TOKENS * SCAN_CHANNELS * 4
+    smem = SCAN_STAGES * (2 * stage + 8) + 2 * stage
+    return ScanPlan(SCAN_TOKENS, SCAN_STAGES, route, smem,
+                    b * -(-d // SCAN_CHANNELS))
+
+
+def kernel_scan_plan(b: int, s: int, d: int, aligned: bool = True
+                     ) -> ScanPlan:
+    """The C side's plan, to hold ``linear_scan_plan`` against (builds the
+    kernel library)."""
+    tokens, stages, tma = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = build.library().repro_linear_scan_plan(
+        b, s, d, int(aligned), ctypes.byref(tokens), ctypes.byref(stages),
+        ctypes.byref(tma))
+    return ScanPlan(tokens.value, stages.value,
+                    "tma" if tma.value else "cp.async4", smem,
+                    b * -(-d // SCAN_CHANNELS))
+
 
 #: Head dims the wkv kernel is instantiated for (hd / 4 warps a block,
 #: the first hd / 8 holding 8 value columns of the state each).
@@ -97,11 +146,14 @@ def linear_scan(log_a, x, h0) -> tuple[torch.Tensor, torch.Tensor]:
     h_last = torch.empty_like(h0)
     if b * d == 0:
         return h, h_last
+    plan = linear_scan_plan(b, s, d, log_a.data_ptr() % 16 == 0
+                            and x.data_ptr() % 16 == 0)
     lib = build.library()
     with torch.cuda.device(x.device):
         rc = lib.repro_linear_scan(log_a.data_ptr(), x.data_ptr(),
                                    h0.data_ptr(), h.data_ptr(),
                                    h_last.data_ptr(), b, s, d,
+                                   int(plan.route == "tma"),
                                    dispatch.stream_of(x))
     build.check(rc, "linear_scan")
     dispatch.count_launch("linear_scan")

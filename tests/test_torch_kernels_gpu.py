@@ -15,7 +15,10 @@ cores (eigproject: ``project_norms_all_tf32(..., 1)``): each is
 also held to at most 1/8 of the error of the plain 1xTF32 emulation
 (``kernels/tf32.py::matmul_1xtf32``, hi hi alone) on the same inputs,
 and two runs give the same bits; the linkage kernels use the
-plain version's IEEE operations and agree exactly.  The assign kernels
+plain version's IEEE operations and agree exactly (the NN-chain with its
+cached nearest neighbours, whose counters also equal those of the plain
+model of the cache, ``nn_chain_cached_ref``, on ties, NaN and overflow
+corners, and past the 19,370 leaves that shared memory once capped).  The assign kernels
 agree with their plain versions to 1e-4 of the largest affinity in fp32
 (the reference's bar; a d = 512 affinity sums 262,144 terms) and 1e-5
 in bf16 (the same bf16 operands, fp32 sums in another order;
@@ -51,7 +54,8 @@ output rounded to bf16); under bf16 compute, with the reference's bf16
 roundings, to 2^-8 of the plain chunk form's (``wkv_chunked_ref``), whose
 gap to the oracle the CPU tests hold within 2x the reference's own bf16
 kernel's.  The linear scan uses the plain version's separately rounded
-IEEE operations and equals it bit for bit.
+IEEE operations and equals it bit for bit on both load routes (TMA, and
+4-byte cp.async for misaligned views and D % 4 != 0), two runs alike.
 """
 import numpy as np
 import pytest
@@ -80,13 +84,15 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
                                                  flash_ref)
 from repro_torch.kernels.flash_attention.ops import _flash_attention_fp32_out
 from repro_torch.kernels.gram import batched_gram_matrix, gram_ref
-from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_ref,
-                                                wkv_chunked, wkv_chunked_ref,
-                                                wkv_ref)
+from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_plan,
+                                                linear_scan_ref, wkv_chunked,
+                                                wkv_chunked_ref, wkv_ref)
 from repro_torch.kernels.tf32 import matmul_1xtf32
-from repro_torch.kernels.linkage import (LINKAGES, linkage_step,
+from repro_torch.core.cluster_engine import cut_device
+from repro_torch.kernels.linkage import (LINKAGES, chain_plan, linkage_step,
                                          linkage_step_ref, nn_chain,
-                                         nn_chain_ref)
+                                         nn_chain_cached_ref, nn_chain_ref)
+from repro_torch.kernels.linkage import ops as lk_ops
 
 
 def close(out, ref, tol=1e-5):
@@ -378,6 +384,62 @@ class TestKernelsOnCard:
         s.fill_diagonal_(float("-inf"))
         s[2, 7] = s[7, 2] = float("nan")
         assert int(nn_chain(s)[2]) < 39
+
+    @pytest.mark.parametrize("linkage", LINKAGES)
+    @pytest.mark.parametrize("case", ["grid", "nan", "inf_rows"])
+    def test_nn_chain_corners(self, cuda_device, linkage, case):
+        """Ties on a 1/8 grid, NaN entries, an all--inf row and a row past
+        FLT_MAX / 2: merges, heights and the step count equal the plain
+        loop's, the counters the plain model's of the cache."""
+        rng = np.random.default_rng(11)
+        if case == "grid":
+            r = rng.integers(0, 8, size=(200, 200)) / 8
+            s = t(np.maximum(r, r.T))
+        else:
+            r = rng.uniform(size=(41, 41))
+            s = t((r + r.T) / 2)
+        s.fill_diagonal_(float("-inf"))
+        if case == "nan":
+            s[2, 7] = s[7, 2] = s[11, 30] = float("nan")
+        if case == "inf_rows":
+            s[5, :] = s[:, 5] = float("-inf")
+            s[3, :] = s[:, 3] = 3e38
+            s[3, 3] = float("-inf")
+        got = lk_ops._nn_chain_counted(s.to(cuda_device), linkage)
+        want = nn_chain_ref(s.clone(), linkage)
+        model = nn_chain_cached_ref(s.clone(), linkage)
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+        assert int(got[2][0]) == int(want[2])
+        assert got[2].tolist()[1:] == [model[3]["iterations"],
+                                       model[3]["rescans"]]
+
+    def test_nn_chain_2048(self, cuda_device):
+        r = np.random.default_rng(6).uniform(size=(2048, 2048))
+        s = t((r + r.T) / 2).to(cuda_device)
+        s.fill_diagonal_(float("-inf"))
+        assert chain_plan(2048).route == "smem"
+        a = nn_chain(s.clone())
+        b = nn_chain_ref(s.clone())
+        assert int(a[2]) == int(b[2]) == 2047
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    def test_nn_chain_past_shared_memory(self, cuda_device):
+        """20,000 leaves, where the per-leaf state lives in device scratch
+        (the wrapper refused n past 19,370 before): every merge is done
+        and the cut at 4 clusters recovers the 4 blocks of R."""
+        n, blocks = 20000, 4
+        assert chain_plan(n).route == "scratch"
+        lab = torch.arange(n, device=cuda_device) * blocks // n
+        gen = torch.Generator(device=cuda_device).manual_seed(0)
+        s = torch.rand((n, n), generator=gen, device=cuda_device) * 0.1
+        s = (s + s.T) / 2 + torch.where(lab[:, None] == lab[None, :], 0.8,
+                                        0.1)
+        s.fill_diagonal_(float("-inf"))
+        merges, heights, steps = nn_chain(s)
+        assert int(steps) == n - 1
+        del s
+        assert same_partition(cut_device(merges, heights, n, blocks), lab)
 
     @pytest.mark.parametrize("mode", ["raw", "blockwise"])
     def test_raw_and_blockwise_match_cpu(self, cuda_device, mode):
@@ -711,7 +773,8 @@ class TestLMKernelsOnCard:
 
     def test_linear_scan(self, cuda_device):
         torch.manual_seed(0)
-        for b, s, d in [(1, 1, 100), (2, 77, 1000), (1, 2048, 4096)]:
+        for b, s, d in [(1, 1, 100), (2, 77, 1000), (1, 2048, 4096),
+                        (1, 4096, 4097), (3, 77, 512)]:
             log_a = -torch.exp(torch.randn((b, s, d), device=cuda_device) - 1)
             x = torch.randn((b, s, d), device=cuda_device)
             h0 = torch.randn((b, d), device=cuda_device)
@@ -720,6 +783,42 @@ class TestLMKernelsOnCard:
             assert dispatch.LAUNCHES["linear_scan"] == before + 1
             want, want_last = linear_scan_ref(log_a, x, h0)
             assert torch.equal(h, want) and torch.equal(h_last, want_last)
+
+    def test_linear_scan_misaligned_and_rerun(self, cuda_device):
+        """A view 4 bytes off 16 (the 4-byte cp.async route), D off the
+        warp and off 16 bytes, B > 1 with S off the stage: equal to the
+        plain version, and two runs bit-equal."""
+        torch.manual_seed(1)
+        b, s, d = 2, 300, 1024
+        buf = torch.randn(2 * b * s * d + 1, device=cuda_device)
+        log_a = -torch.exp(buf[1:1 + b * s * d].view(b, s, d) - 1)
+        log_a = torch.empty(b * s * d + 1, device=cuda_device)[1:].view(
+            b, s, d).copy_(log_a)
+        x = buf[1 + b * s * d:].view(b, s, d)
+        assert log_a.data_ptr() % 16 and x.data_ptr() % 16
+        assert linear_scan_plan(b, s, d, False).route == "cp.async4"
+        h0 = torch.randn((b, d), device=cuda_device)
+        for args in [(log_a, x, h0)] + [
+                (-torch.exp(torch.randn((b_, s_, d_), device=cuda_device)),
+                 torch.randn((b_, s_, d_), device=cuda_device),
+                 torch.randn((b_, d_), device=cuda_device))
+                for b_, s_, d_ in [(1, 4096, 4097), (3, 77, 512),
+                                   (2, 5, 6)]]:
+            h, h_last = linear_scan(*args)
+            want, want_last = linear_scan_ref(*args)
+            assert torch.equal(h, want) and torch.equal(h_last, want_last)
+            again = linear_scan(*args)
+            assert torch.equal(h, again[0]) and torch.equal(h_last,
+                                                            again[1])
+
+    def test_scan_and_chain_plans_match_the_kernels(self, cuda_device):
+        from repro_torch.kernels.recurrent_scan import ops as rs_ops
+
+        for args in [(1, 4096, 4096, True), (1, 4096, 4097, True),
+                     (3, 77, 512, False), (1, 0, 8, True), (2, 5, 12, True)]:
+            assert rs_ops.kernel_scan_plan(*args) == linear_scan_plan(*args)
+        for n in (0, 2, 1024, 11019, 11020, 19371, 20000):
+            assert lk_ops.kernel_chain_plan(n) == chain_plan(n)
 
     @pytest.mark.parametrize("arch", ["qwen3_1_7b", "rwkv6_1_6b",
                                       "recurrentgemma_9b"])
