@@ -13,6 +13,13 @@ The LM model zoo does have weights; ``lm_params_from_reference`` walks
 the reference's nested parameter dict into the port's ``LM`` and
 ``cluster_heads_from_reference`` carries the per-cluster serving heads,
 so a test runs both packages on the same random weights.
+
+The trainer's models (the paper's CNN and MLP) carry nested ``{"w",
+"b"}`` dicts in the reference and flat PyTorch-layout dicts in the port:
+``paper_cnn_params_from_reference`` and ``paper_mlp_params_from_reference``
+map one to the other, and ``mthfl_config_from_reference`` and
+``ifca_config_from_reference`` carry the trainer's and IFCA's
+configurations.
 """
 from __future__ import annotations
 
@@ -24,6 +31,9 @@ from repro_torch.core.membership_engine import MembershipConfig
 from repro_torch.core.signature_engine import SignatureConfig
 from repro_torch.core.similarity import SimilarityConfig
 from repro_torch.data.features import FeatureConfig
+from repro_torch.fed.client import ClientConfig
+from repro_torch.fed.ifca import IFCAConfig
+from repro_torch.fed.trainer import MTHFLConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.launch.decode_loop import ClusterHeads
 from repro_torch.models import transformer
@@ -33,7 +43,10 @@ __all__ = ["similarity_config_from_reference",
            "feature_config_from_reference",
            "signature_config_from_reference", "phi_params_from_reference",
            "membership_config_from_reference", "lm_params_from_reference",
-           "cluster_heads_from_reference"]
+           "cluster_heads_from_reference",
+           "paper_cnn_params_from_reference",
+           "paper_mlp_params_from_reference", "mthfl_config_from_reference",
+           "ifca_config_from_reference"]
 
 
 def similarity_config_from_reference(cfg) -> SimilarityConfig:
@@ -166,3 +179,80 @@ def cluster_heads_from_reference(heads, device: str | torch.device = "cuda"
     return ClusterHeads(head=tensor(heads.head),
                         adapter_a=tensor(heads.adapter_a),
                         adapter_b=tensor(heads.adapter_b))
+
+
+def _f32(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
+
+
+def paper_cnn_params_from_reference(params: dict, cfg,
+                                    device: str | torch.device = "cuda"
+                                    ) -> dict:
+    """The reference CNN's ``{layer: {"w", "b"}}`` -> the port's flat dict
+    on ``device``.  Conv kernels go from HWIO to OIHW and dense matrices
+    from ``(in, out)`` to ``(out, in)``; ``fc1``'s inputs keep their
+    ``(h, w, c)`` order, as the port flattens its activations in that
+    order.  ``cfg`` (either package's ``PaperCNNConfig``) fixes the
+    expected shapes."""
+    dev = resolve_device(device)
+    c = cfg.image_hw[2]
+    shapes = {"conv1": (5, 5, c, cfg.c1), "conv2": (5, 5, cfg.c1, cfg.c2),
+              "fc1": (None, cfg.fc1), "fc2": (cfg.fc1, cfg.fc2),
+              "head": (cfg.fc2, cfg.n_classes)}
+    out = {}
+    for name, shape in shapes.items():
+        w = np.asarray(params[name]["w"])
+        if w.shape[-1] != shape[-1] or (shape[0] is not None
+                                        and w.shape[0] != shape[0]):
+            raise ValueError(f"{name}.w has shape {w.shape}, the config "
+                             f"asks for {shape}")
+        perm = (3, 2, 0, 1) if w.ndim == 4 else (1, 0)
+        out[f"{name}.weight"] = _f32(np.transpose(w, perm), dev)
+        out[f"{name}.bias"] = _f32(params[name]["b"], dev)
+    return out
+
+
+def paper_mlp_params_from_reference(params: dict, cfg,
+                                    device: str | torch.device = "cuda"
+                                    ) -> dict:
+    """The reference MLP's ``{layer: {"w", "b"}}`` -> the port's flat dict
+    on ``device`` (dense matrices from ``(in, out)`` to ``(out, in)``)."""
+    dev = resolve_device(device)
+    shapes = {"fc1": (cfg.m, cfg.hidden), "head": (cfg.hidden, cfg.n_classes)}
+    out = {}
+    for name, shape in shapes.items():
+        w = np.asarray(params[name]["w"])
+        if w.shape != shape:
+            raise ValueError(f"{name}.w has shape {w.shape}, the config "
+                             f"asks for {shape}")
+        out[f"{name}.weight"] = _f32(w.T, dev)
+        out[f"{name}.bias"] = _f32(params[name]["b"], dev)
+    return out
+
+
+def _client_config(cfg) -> ClientConfig:
+    return ClientConfig(lr=cfg.lr, optimizer=cfg.optimizer,
+                        clip_norm=cfg.clip_norm,
+                        weight_decay=cfg.weight_decay)
+
+
+def mthfl_config_from_reference(cfg) -> MTHFLConfig:
+    """A reference ``MTHFLConfig`` (its ``ClientConfig`` included) -> the
+    port's.  ``jnp`` maps to ``torch``; ``shard_map`` stays, and the port's
+    trainer refuses it (ROADMAP Queue 1 item 13), so the reference's
+    ``mesh_axis`` has no counterpart yet."""
+    return MTHFLConfig(
+        global_rounds=cfg.global_rounds, local_rounds=cfg.local_rounds,
+        local_steps=cfg.local_steps, batch_size=cfg.batch_size,
+        client=_client_config(cfg.client), seed=cfg.seed,
+        backend="shard_map" if cfg.backend == "shard_map" else "torch",
+        scan_rounds=cfg.scan_rounds,
+        dropout_frac=cfg.dropout_frac)
+
+
+def ifca_config_from_reference(cfg) -> IFCAConfig:
+    """A reference ``IFCAConfig`` (its ``ClientConfig`` included) -> the
+    port's."""
+    return IFCAConfig(n_clusters=cfg.n_clusters, rounds=cfg.rounds,
+                      local_steps=cfg.local_steps, batch_size=cfg.batch_size,
+                      client=_client_config(cfg.client), seed=cfg.seed)

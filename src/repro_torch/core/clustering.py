@@ -2,8 +2,9 @@
 
 A copy of the parts of ``src/repro/core/clustering.py`` the port's
 slice needs: ``Dendrogram``, ``hac``, ``cut``, ``hac_clusters``,
-``oracle_clusters``, ``clustering_accuracy`` and
-``adjusted_rand_index``.  The port imports nothing from the JAX package,
+``oracle_clusters``, ``clustering_accuracy``,
+``adjusted_rand_index``, and the trainer's baselines ``random_clusters``
+(the paper's) and ``ifca_assign`` (IFCA's assignment step).  The port imports nothing from the JAX package,
 so it keeps its own copy; the tests hold the two equal.
 """
 from __future__ import annotations
@@ -20,6 +21,8 @@ __all__ = [
     "cut",
     "hac_clusters",
     "oracle_clusters",
+    "random_clusters",
+    "ifca_assign",
     "clustering_accuracy",
     "adjusted_rand_index",
 ]
@@ -154,10 +157,44 @@ def hac_clusters(similarity: np.ndarray, n_clusters: int,
     return cut(hac(similarity, linkage), n_clusters)
 
 
+def random_clusters(n_users: int, n_clusters: int,
+                    rng: np.random.Generator | int = 0,
+                    cluster_sizes: Sequence[int] | None = None) -> np.ndarray:
+    """The paper's baseline: a uniformly random partition.
+
+    If ``cluster_sizes`` is given the partition respects those sizes (the
+    paper's random baseline keeps the LPS capacities fixed and shuffles
+    users); otherwise each user picks a cluster uniformly, re-drawn until
+    every cluster is non-empty.
+    """
+    rng = np.random.default_rng(rng) if isinstance(rng, int) else rng
+    if cluster_sizes is not None:
+        if sum(cluster_sizes) != n_users:
+            raise ValueError("cluster_sizes must sum to n_users")
+        labels = np.repeat(np.arange(len(cluster_sizes)), cluster_sizes)
+        rng.shuffle(labels)
+        return labels.astype(np.int32)
+    if not 1 <= n_clusters <= n_users:
+        # every cluster must be non-empty, so n_clusters > n_users would
+        # spin the redraw loop forever
+        raise ValueError(f"n_clusters must be in [1, {n_users}], "
+                         f"got {n_clusters}")
+    while True:
+        labels = rng.integers(0, n_clusters, size=n_users).astype(np.int32)
+        if len(np.unique(labels)) == n_clusters:
+            return labels
+
+
 def oracle_clusters(task_ids: Sequence[int]) -> np.ndarray:
     """Ground-truth partition (relabelled to 0..T-1)."""
     _, labels = np.unique(np.asarray(task_ids), return_inverse=True)
     return labels.astype(np.int32)
+
+
+def ifca_assign(losses: np.ndarray) -> np.ndarray:
+    """One IFCA assignment step: ``losses (N, T)`` per-user per-cluster
+    model loss -> each user joins its argmin cluster."""
+    return np.asarray(losses).argmin(axis=1).astype(np.int32)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,7 @@ from protocol to labels.
 from __future__ import annotations
 
 import dataclasses
+import numbers
 from typing import Sequence
 
 import numpy as np
@@ -180,6 +181,13 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
     ``(N, n, d)`` feature stack.  ``probe`` carries the public ``pca``
     probe set.
     """
+    if not isinstance(model_params, numbers.Integral):
+        # The reference's fourth positional argument is the linkage; here
+        # it lands in model_params.
+        raise TypeError(
+            f"model_params must be an integer parameter count, got "
+            f"{model_params!r}; the linkage goes in "
+            f"cluster_cfg=ClusterConfig(linkage=...)")
     if feature_cfg is None and (probe is not None
                                 or signature_cfg is not None):
         raise ValueError("probe/signature_cfg configure the raw-data "

@@ -1,11 +1,16 @@
-"""Cluster-stack layout of the trainer, PyTorch port.
+"""Common/task-specific parameter partition and the trainer's
+cluster-stack layout, PyTorch port of ``src/repro/fed/partition.py``.
 
-Holds ``stack_layout`` and ``admit_layout`` from
-``src/repro/fed/partition.py``: where each user sits in the trainer's
-``(T, C_max)`` cluster super-stack, and how admitted arrivals slot into
-an existing stack without changing its shape.  The membership launcher
-keeps that layout up to date.  The rest of the reference module (the
-parameter partition) waits for the trainer, ROADMAP Queue 1 item 8.
+The paper's MT-HFL shares only the common representation layers (the two
+conv layers of its CNN) through the GPS.  The port's parameters are flat
+``name -> tensor`` dicts whose names are the module's dotted paths
+(``"conv1.weight"``), so a partition is a predicate over names, and
+``split_params``, ``merge_params`` and ``tree_path_map`` act on those
+dicts.  ``stack_layout`` and ``admit_layout`` say where each user sits in
+the trainer's ``(T, C_max)`` cluster super-stack, and how admitted
+arrivals slot into an existing stack without changing its shape; the
+membership launcher keeps that layout up to date.  The edge-grouped
+layout waits for the hierarchical path, ROADMAP Queue 1 item 10.
 
 Out-of-range labels (the ``-1`` unassigned convention among them) get
 the reference's sentinel coordinates ``rows == T`` and ``slot == C_max``.
@@ -15,9 +20,62 @@ per-user payloads through the returned coordinates must do the same.
 """
 from __future__ import annotations
 
+from typing import Any, Callable, Iterable, Mapping
+
 import torch
 
-__all__ = ["stack_layout", "admit_layout"]
+PathPred = Callable[[str], bool]
+
+__all__ = ["tree_paths", "prefix_predicate", "split_params", "merge_params",
+           "tree_path_map", "stack_layout", "admit_layout"]
+
+
+def tree_paths(params: Mapping[str, Any]) -> list[str]:
+    """Every tensor's name, in the dict's order."""
+    return list(params)
+
+
+def prefix_predicate(prefixes: Iterable[str | tuple[str, ...]]) -> PathPred:
+    """Predicate matching every name equal to a prefix or below it.
+
+    ``prefix_predicate(["conv1", "conv2"])`` marks the paper CNN's common
+    layers: ``"conv1"`` matches ``"conv1.weight"`` and ``"conv1.bias"``,
+    not ``"conv10.weight"``.  A tuple prefix is a path, joined with dots.
+    """
+    norm = [".".join(p) if isinstance(p, tuple) else p for p in prefixes]
+
+    def pred(name: str) -> bool:
+        return any(name == p or name.startswith(p + ".") for p in norm)
+
+    return pred
+
+
+def tree_path_map(fn: Callable[[str, Any], Any], params: Mapping[str, Any]
+                  ) -> dict:
+    """``{name: fn(name, tensor)}``: maps over the dict, keeping its
+    names and order."""
+    return {name: fn(name, v) for name, v in params.items()}
+
+
+def split_params(params: Mapping[str, Any], is_common: PathPred
+                 ) -> tuple[dict, dict]:
+    """Split a parameter dict into ``(common, specific)``: every tensor
+    goes to exactly one side."""
+    common, specific = {}, {}
+    for name, v in params.items():
+        (common if is_common(name) else specific)[name] = v
+    return common, specific
+
+
+def merge_params(common: Mapping[str, Any], specific: Mapping[str, Any]
+                 ) -> dict:
+    """Inverse of ``split_params``; the two sides must be disjoint."""
+    out = dict(common)
+    for name, v in specific.items():
+        if name in out:
+            raise ValueError(f"overlapping leaf at key {name!r}")
+        out[name] = v
+    return out
 
 
 def _labels(labels, device=None) -> torch.Tensor:

@@ -139,3 +139,18 @@ def test_raw_entry_point_matches_reference(mixture):
     np.testing.assert_allclose(host(res.similarity),
                                np.asarray(ref.similarity), atol=1e-5)
     assert res.ledger.summary() == ref.ledger.summary()
+
+
+@pytest.mark.parametrize("bad", ["single", 2.5, None])
+def test_linkage_in_reference_position_names_cluster_cfg(mixture, bad):
+    """The reference's fourth positional argument is the linkage; the
+    port's is ``model_params``, which must be an integer, and the error
+    says where the linkage goes."""
+    feats, _ = mixture
+    with pytest.raises(TypeError, match=r"cluster_cfg=ClusterConfig\("
+                       r"linkage=\.\.\.\)"):
+        oneshot.one_shot_clustering(feats, 4, SimilarityConfig(top_k=3),
+                                    bad, device="cpu")
+    res = oneshot.one_shot_clustering(feats, 4, SimilarityConfig(top_k=3),
+                                      np.int64(1000), device="cpu")
+    assert res.ledger.model_params == 1000

@@ -113,7 +113,10 @@ def test_port_imports_neither_jax_nor_reference():
                  "kernels.gram_project.ops", "kernels.quant",
                  "kernels.assign.ops", "kernels.assign.ref",
                  "core.membership_engine", "core.hierarchy",
-                 "fed.partition", "launch.membership"):
+                 "fed.partition", "launch.membership", "optim.optimizers",
+                 "models.cnn", "models.mlp", "configs.paper_cnn",
+                 "configs.paper_mlp", "fed.fedavg", "fed.hierarchy",
+                 "fed.client", "fed.trainer", "fed.ifca"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
