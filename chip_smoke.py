@@ -10,7 +10,8 @@ holds each kernel against its plain PyTorch version on the card, and
 drives at full width every path of the port: the dense, blockwise, raw
 and landmark paths of ``one_shot_clustering`` (paper Algorithm 2),
 membership serving, LM serving and the two prefills, then the MT-HFL
-trainer (paper Algorithm 1) and the IFCA baseline:
+trainer (paper Algorithm 1), the IFCA baseline and the hierarchical
+two-level protocol:
 
   [3]  dense, on pre-featurised users: N=1024 x n=256 x d=512, T=4,
        top_k=8;
@@ -27,8 +28,11 @@ trainer (paper Algorithm 1) and the IFCA baseline:
   [3f] cluster-routed LM serving: ``ServeEngine`` on RWKV-6 1.6B at full
        width and depth (bf16, the wkv kernel on every prefill chunk), 16
        requests from 4 token tasks routed by ``route_requests`` over a
-       ``MembershipEngine``; then, at full width and 2 layers in fp32,
-       its tokens against per-request ``greedy_decode``;
+       ``MembershipEngine``, and one traced wave: the device's busy share
+       (the union of kernel intervals over their span, ``busy_share``),
+       the trace's kernel events required to cover the host's launches;
+       then, at full width and 2 layers in fp32, its tokens against
+       per-request ``greedy_decode``;
   [3g] dense prefill: Qwen3-1.7B at full width and depth (bf16, the flash
        kernel), ``forward(last_only=True)`` on 2 x 4096 tokens;
   [3h] hybrid prefill: RecurrentGemma-9B at full width and depth (bf16,
@@ -54,7 +58,16 @@ trainer (paper Algorithm 1) and the IFCA baseline:
        of 1e-4 x max|param| and 4x the card's own spread; then timed
        with every user walked one by one, the reference's shape, beside
        the vmapped run.  The trainer and IFCA reach no hand-written kernel:
-       their convolutions and products are library calls in IEEE fp32.
+       their convolutions and products are library calls in IEEE fp32;
+  [3k] the hierarchical protocol (``hierarchy_cfg``) on phase 3's users
+       in 8 edge groups of 128, 4 clusters cut a group: accuracy 100%,
+       agreement with phase 3's flat labels >= 0.95 after
+       ``greedy_match_labels``, one ``gram``, ``eigproject`` and group
+       NN-chain launch for the batch of groups plus the global chain, the
+       stage ms; a small input against the CPU plain path;
+  [3k(b)] the same at 10^5 users x 8 samples, d = 16, 500 groups in
+       batches of 100 (the reference's scale point, where the flat R
+       would be 37.3 GiB): ARI 1.0 against the tasks, wall and memory.
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -101,7 +114,9 @@ heights and step count to the plain loop bit for bit and its counters
 1/8-grid and NaN R for all three linkages, and runs 20,000 leaves (the
 per-leaf state in device scratch) to every merge and the blocks of R;
 phase [4] prints its device time, iterations and us an iteration at the
-dense cell's R.  ``linear_scan`` streams through a TMA ring (4-byte
+dense cell's R.  Phase [4] also times the group-axis forms at phase 3k's
+group shape (``eigproject_grouped``, ``linkage_grouped``), each held to 8
+single calls and its plain version.  ``linear_scan`` streams through a TMA ring (4-byte
 cp.async where TMA cannot read): phase [2] holds it bit for bit on both
 routes, a misaligned view, B = 3 and S off the stage, two runs alike;
 phase [4] prints its route, device time and GB/s.  Phase [5] times ``torch.linalg.eigh`` on 64 of the
@@ -140,6 +155,13 @@ BLOCK_USERS = 128
 RAW_USERS_PER_TASK, RAW_ROWS_PER_USER, RAW_CHUNK_ROWS = 512, 256, 128
 # Landmark path: landmark projectors (128 x 512 x 512 f32 = 128 MiB).
 LANDMARKS = 128
+# Hierarchical path (phase 3k): phase 3's users in 8 edge groups of 128,
+# 4 clusters cut a group.  At scale (3k(b)): the reference's N = 10^5
+# point (benchmarks/bench_scale.py:56-58, HIER_PLAN), where the flat R
+# alone would be 37.3 GiB.
+HIER_GROUPS, HIER_GROUP_CLUSTERS = 8, 4
+SCALE_USERS, SCALE_SAMPLES, SCALE_DIM = 100_000, 8, 16
+SCALE_GROUPS, SCALE_BATCH = 500, 100
 # Serving cell: launch.membership arguments, directory f32, bf16 compute.
 SERVING_ARGS = ["--seed-users", "1024", "--samples", "256", "--dim", "512",
                 "--tasks", "4", "--top-k", "8", "--waves", "6",
@@ -193,6 +215,10 @@ TRAIN_LOSS_TOL, IFCA_PARAM_TOL = 1e-4, 1e-4
 NUDGE, NUDGE_RUNS, SPREAD_FACTOR = 1e-7, 2, 4.0
 # IFCA cell (phase 3j): 64 users a task, 3 rounds, global 10-class labels.
 IFCA_USERS, IFCA_ROUNDS = 64, 3
+
+# Short spin kernels that open a profiler session (phase 3f): a session in
+# a process minutes old lost up to its first 9 kernel events on an H100.
+GUARD_SPINS = 64
 
 # Published H100 SXM peaks (NVIDIA data sheet, 700 W): fp32 outside the
 # tensor cores, and HBM3 bandwidth.
@@ -592,7 +618,7 @@ def probe_chain(torch, lib, s):
     scratch = torch.empty((chain_plan(n).scratch,), dtype=torch.uint8,
                           device=s.device)
     build.check(lib.repro_nn_chain(
-        s.data_ptr(), n, 0, max_iterations(n), merges.data_ptr(),
+        s.data_ptr(), 1, n, 0, max_iterations(n), merges.data_ptr(),
         heights.data_ptr(), counters.data_ptr(), scratch.data_ptr(),
         dispatch.stream_of(s)), "nn_chain (probe build)")
     return merges, heights, counters
@@ -744,7 +770,8 @@ def main() -> int:
     from repro_torch.core import clustering as clu
     from repro_torch.core import similarity as sim
     from repro_torch.core.cluster_engine import (ClusterConfig, ClusterEngine,
-                                                 cut_device)
+                                                 cut_device,
+                                                 cut_device_grouped)
     from repro_torch.core.oneshot import one_shot_clustering
     from repro_torch.core.signature_engine import (SignatureConfig,
                                                    SignatureEngine,
@@ -757,6 +784,8 @@ def main() -> int:
     from repro_torch.kernels.eigproject import (eig_plan, project_norms_all,
                                                 project_norms_all_ref,
                                                 project_norms_all_tf32,
+                                                project_norms_grouped,
+                                                project_norms_grouped_ref,
                                                 split_w_ref)
     from repro_torch.kernels.eigproject.ops import kernel_plan as \
         eig_kernel_plan
@@ -770,6 +799,8 @@ def main() -> int:
     from repro_torch.kernels.linkage import (LINKAGES, chain_plan,
                                              linkage_step, linkage_step_ref,
                                              nn_chain, nn_chain_cached_ref,
+                                             nn_chain_grouped,
+                                             nn_chain_grouped_ref,
                                              nn_chain_ref)
     from repro_torch.kernels.linkage import ops as lk_ops
     from repro_torch.kernels import quant
@@ -778,7 +809,10 @@ def main() -> int:
                                             assign_wave_plain)
     from repro_torch.kernels.assign import ops as assign_ops
     from repro_torch.launch import membership as launch_membership
+    from repro_torch.core import hierarchy
     from repro_torch.core.engine import landmark_indices
+    from repro_torch.core.hierarchy import (HierarchyConfig,
+                                            greedy_match_labels)
     from repro_torch.core.membership_engine import (MembershipConfig,
                                                     MembershipEngine)
     from repro_torch.configs.base import get_arch
@@ -975,6 +1009,53 @@ def main() -> int:
           "merges, heights and step counts equal to the plain loop (exact), "
           "iterations and rescans to the plain model of the cache, for all "
           "three linkages")
+    # The group axis at phase 3k(b)'s batch shape: SCALE_BATCH groups of
+    # 200 users at d = 16, where the 32-deep, 128-row TMA box is larger
+    # than G.  eigproject against one single call a group (bit for bit)
+    # and its plain version (1e-5 x max|plain|, 1/8 of the 1xTF32
+    # emulation's error); the NN-chain against one single call a group
+    # and, on two groups, the plain loop; one launch a grouped call.
+    # Its own generator, so that the draws of the later checks stay as
+    # they were.
+    gen_s = torch.Generator(device="cpu").manual_seed(SEED + 11)
+    ng_s = SCALE_USERS // SCALE_GROUPS
+    g_s = torch.randn(SCALE_BATCH * ng_s, 8, SCALE_DIM,
+                      generator=gen_s).to(dev)
+    g_s = (g_s.transpose(1, 2) @ g_s / 8).view(SCALE_BATCH, ng_s, SCALE_DIM,
+                                               SCALE_DIM)
+    v_s = torch.linalg.qr(torch.randn(SCALE_BATCH, ng_s, SCALE_DIM, TOP_K,
+                                      generator=gen_s).to(dev))[0]
+    before = dict(dispatch.LAUNCHES)
+    out_s = project_norms_grouped(g_s, v_s)
+    require(dispatch.LAUNCHES["eigproject"] == before["eigproject"] + 1,
+            "eigproject grouped: not one launch a call")
+    require(torch.equal(out_s, torch.stack([project_norms_all(g_s[i], v_s[i])
+                                            for i in range(SCALE_BATCH)])),
+            "eigproject grouped differs from single calls at d = 16")
+    check_split(torch, f"eigproject grouped ({SCALE_BATCH}, {ng_s}, "
+                f"{SCALE_DIM}, {TOP_K})", out_s,
+                project_norms_grouped_ref(g_s, v_s),
+                torch.stack([project_norms_all_tf32(g_s[i], v_s[i], 1)
+                             for i in range(SCALE_BATCH)]))
+    r = torch.rand((SCALE_BATCH, ng_s, ng_s), generator=gen_s).to(dev)
+    s_s = (r + r.transpose(1, 2)) / 2
+    s_s.diagonal(dim1=1, dim2=2).fill_(float("-inf"))
+    mg, hg, sg = nn_chain_grouped(s_s.clone())
+    require(dispatch.LAUNCHES["linkage"] == before["linkage"] + 1,
+            "nn_chain grouped: not one launch a call")
+    singles_s = [nn_chain(s_s[i].clone()) for i in range(SCALE_BATCH)]
+    require(all(torch.equal(mg[i], a_) and torch.equal(hg[i], b_)
+                and int(sg[i]) == int(c_) == ng_s - 1
+                for i, (a_, b_, c_) in enumerate(singles_s)),
+            "nn_chain grouped differs from single calls")
+    want = nn_chain_grouped_ref(s_s[:2].clone())
+    require(all(torch.equal(a_[:2], b_) for a_, b_ in zip((mg, hg, sg), want)),
+            "nn_chain grouped differs from the plain loop")
+    print(f"  group axis ({SCALE_BATCH} groups of {ng_s}, d={SCALE_DIM}): "
+          f"eigproject bit-equal to one single call a group, the NN-chain's "
+          f"merges, heights and steps equal to single calls and the plain "
+          f"loop; one launch a grouped call")
+    del g_s, v_s, out_s, s_s
     n_big, blocks = 20000, 4
     lab = torch.arange(n_big, device=dev) * blocks // n_big
     big = torch.rand((n_big, n_big), generator=torch.Generator(
@@ -1784,33 +1865,60 @@ def main() -> int:
            decode_dispatches=stats_f.decode_dispatches,
            slot_utilization=stats_f.slot_utilization)
     # A second, traced run of the first wave's requests: the device's busy
-    # time (kernel durations summed) against the traced wall, and the
-    # kernel launches the host issued.  The untraced run above gives the
-    # end-to-end numbers; tracing slows the host.  Only device activity
-    # is traced (CPU operator events would cost minutes to sum).
+    # share and the kernel launches the host issued.  The untraced run
+    # above gives the end-to-end numbers; tracing slows the host.  Only
+    # device activity (and the runtime's launch calls) is traced.  The
+    # busy share is the union of the kernels' intervals over their span,
+    # both on the profiler's clock (``busy_share``, as in 3i).  A session
+    # in an old process can lose its first kernel events, so it opens
+    # with GUARD_SPINS short spin kernels, which take no part in the
+    # counts, and the traced kernel events must cover every launch the
+    # host issued after them; the span is printed beside the span two
+    # CUDA events give around the wave.
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    ev_start = torch.cuda.Event(enable_timing=True)
+    ev_end = torch.cuda.Event(enable_timing=True)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GUARD_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        ev_start.record()
         t0 = time.perf_counter()
         engine_f.serve(reqs[:scfg_f.wave])
+        ev_end.record()
         torch.cuda.synchronize()
         traced_wall = time.perf_counter() - t0
-    events = prof.key_averages()
-    busy_s = sum(getattr(e, "self_device_time_total",
-                         getattr(e, "self_cuda_time_total", 0))
-                 for e in events if e.device_type == DeviceType.CUDA) / 1e6
-    host_launches = sum(e.count for e in events
-                        if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
-                                     "cuLaunchKernelEx",
-                                     "cudaLaunchKernelExC"))
-    print(f"  traced run: wall {traced_wall:.3f} s, device busy "
-          f"{busy_s:.3f} s ({busy_s / traced_wall:.1%}; idle "
-          f"{1 - busy_s / traced_wall:.1%}), {host_launches} kernel "
-          f"launches from the host")
+    events_span = ev_start.elapsed_time(ev_end) / 1e3
+    launch_calls = ("cudaLaunchKernel", "cuLaunchKernel", "cuLaunchKernelEx",
+                    "cudaLaunchKernelExC")
+    all_events = prof.events()
+    host_launches = sum(e.name in launch_calls
+                        for e in all_events) - GUARD_SPINS
+    kernel_spans = [(e.time_range.start, e.time_range.end)
+                    for e in all_events
+                    if e.device_type == DeviceType.CUDA
+                    and "spin_kernel" not in e.name
+                    and not e.name.startswith(("Memcpy", "Memset"))]
+    copy_spans = [(e.time_range.start, e.time_range.end)
+                  for e in all_events
+                  if e.device_type == DeviceType.CUDA
+                  and e.name.startswith(("Memcpy", "Memset"))]
+    busy_f, span_f = busy_share(kernel_spans + copy_spans)
+    print(f"  traced run: wall {traced_wall:.3f} s; device busy "
+          f"{busy_f:.1%} of the kernels' span (idle {1 - busy_f:.1%}; "
+          f"{len(kernel_spans)} kernels and {len(copy_spans)} copies over "
+          f"{span_f:.3f} s on the profiler's clock, {events_span:.3f} s "
+          f"between CUDA events); {host_launches} kernel launches from the "
+          f"host")
+    require(len(kernel_spans) >= host_launches,
+            f"3f: the trace holds {len(kernel_spans)} kernel events for "
+            f"{host_launches} launches: it lost events")
     summary["paths"]["lm_serving"].update(
-        traced_wall_s=traced_wall, device_busy_s=busy_s,
-        host_launches=host_launches)
+        traced_wall_s=traced_wall, traced_busy_share=busy_f,
+        traced_span_s=span_f, events_span_s=events_span,
+        traced_kernels=len(kernel_spans), host_launches=host_launches)
     for r_, res in zip(reqs, stats_f.results):
         require(len(res.tokens) == r_.gen
                 and bool(((res.tokens >= 0)
@@ -2275,6 +2383,161 @@ def main() -> int:
     del raw_users, res_j, res_j_cpu, res_j_loop
     phase_done("phase 3j")
 
+    # -- Phase 3k: the hierarchical two-level protocol --------------------
+    print(f"[3k] hierarchical path: one_shot_clustering(hierarchy_cfg) on "
+          f"phase 3's users, G={HIER_GROUPS} edge groups, "
+          f"T_g={HIER_GROUP_CLUSTERS}")
+    small_h = HierarchyConfig(n_groups=4)
+    on_card = one_shot_clustering(small, 4, cfg=cfg_small,
+                                  hierarchy_cfg=small_h)
+    on_cpu = one_shot_clustering(small, 4, cfg=cfg_small,
+                                 hierarchy_cfg=small_h, device="cpu")
+    require(torch.equal(on_card.local_labels.cpu(), on_cpu.local_labels)
+            and clu.adjusted_rand_index(on_card.labels.cpu().numpy(),
+                                        on_cpu.labels.numpy()) == 1.0,
+            "3k small input: labels differ from the CPU plain path")
+    small_gap = max_err(torch, on_card.entry_lam.cpu(), on_cpu.entry_lam)
+    require(small_gap <= 1e-4 * float(on_cpu.entry_lam.max()),
+            f"3k small input: entry spectra {small_gap:.3e} from the CPU's")
+    print(f"  small input (64 users, d=64, 4 groups): the CPU plain path's "
+          f"partition and group-local labels, entry spectra within "
+          f"{small_gap:.3e}")
+    hcfg = HierarchyConfig(n_groups=HIER_GROUPS,
+                           group_clusters=HIER_GROUP_CLUSTERS)
+    ng_k = N_USERS // HIER_GROUPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    res_k = one_shot_clustering(x, TASKS, cfg=cfg, cluster_cfg=ccfg,
+                                device=dev, hierarchy_cfg=hcfg)
+    labels_k = res_k.labels.cpu().numpy()
+    wall_k = time.perf_counter() - t0
+    launches_k = dict(dispatch.LAUNCHES)
+    _, mem_text = memory_line(torch, live)
+    acc_k = clu.clustering_accuracy(labels_k, task_ids)
+    agree_k = float((greedy_match_labels(labels_k, dense_labels, TASKS)
+                     == dense_labels).mean())
+    n_entries = HIER_GROUPS * HIER_GROUP_CLUSTERS
+    print(f"  launches: {launches_k}")
+    print(f"  wall {wall_k:.3f} s, {mem_text} (dense path: "
+          f"{dense_work / 2**30:.2f} GiB above its live memory), clustering "
+          f"accuracy {acc_k:.1%}, agreement with phase 3's flat labels "
+          f"{agree_k:.4f} (required >= 0.95), {HIER_GROUPS} groups -> "
+          f"{n_entries} entries -> {TASKS} clusters")
+    record("hierarchical", wall_k, live, accuracy=acc_k,
+           flat_agreement=agree_k, launches=launches_k)
+    require(acc_k == 1.0, f"3k: clustering accuracy {acc_k:.4f} < 1")
+    require(agree_k >= 0.95, f"3k: agreement {agree_k:.4f} with the flat "
+            "labels < 0.95")
+    require(launches_k["eigproject"] == 1 and launches_k["gram"] == 1
+            and launches_k["linkage"] == 2,
+            "3k: not one gram, eigproject and group NN-chain launch for the "
+            "one batch of groups, plus the global NN-chain")
+    r_glob = res_k.global_similarity
+    require(tuple(r_glob.shape) == (n_entries, n_entries)
+            and bool(torch.isfinite(r_glob).all())
+            and torch.equal(r_glob, r_glob.T)
+            and int(res_k.entry_counts.sum()) == N_USERS
+            and tuple(res_k.entry_v.shape) == (n_entries, DIM, TOP_K)
+            and bool(torch.isfinite(res_k.entry_lam).all()),
+            "3k: the directory is not finite or has the wrong shapes")
+    # Stage times, one synchronised stage at a time (contiguous groups:
+    # the group stacks are views of phase 3's users).
+    stages_k = {}
+
+    def stage_k(name, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        stages_k[name] = (time.perf_counter() - t) * 1e3
+        return out
+
+    feats_k = x.reshape(HIER_GROUPS * ng_k, N_SAMPLES, DIM)
+    grams_k = stage_k("gram", lambda: sim.batched_gram(feats_k))
+    lam_k, v_k = stage_k("eigh", lambda: sim.spectrum(grams_k, TOP_K))
+    grams_kg = grams_k.view(HIER_GROUPS, ng_k, DIM, DIM)
+    v_kg = v_k.view(HIER_GROUPS, ng_k, DIM, TOP_K)
+    lam_hat_k = stage_k("cross_projection",
+                        lambda: project_norms_grouped(grams_kg, v_kg))
+
+    def group_relevance():
+        r_ = sim.relevance(lam_k.view(HIER_GROUPS, ng_k, 1, TOP_K),
+                           lam_hat_k, cfg.eig_floor)
+        return (r_ + r_.transpose(1, 2)) / 2.0
+
+    big_r_k = stage_k("relevance", group_relevance)
+    local_k, _ = stage_k("group_hac_cut", lambda: hierarchy._batched_hac_cut(
+        big_r_k, linkage=ccfg.linkage, n_clusters=HIER_GROUP_CLUSTERS))
+    entry_k = (torch.arange(HIER_GROUPS, device=dev).repeat_interleave(ng_k)
+               * HIER_GROUP_CLUSTERS + local_k.reshape(-1)).long()
+    lam_e, v_e, _, _ = stage_k("compress", lambda: hierarchy._compress_entries(
+        lam_k, v_k, entry_k, n_entries=n_entries, top_k=TOP_K))
+    stage_k("global_stage", lambda: ClusterEngine(ccfg, device=dev).labels(
+        sim.signature_relevance(lam_e, v_e, eig_floor=cfg.eig_floor), TASKS))
+    print("  stage ms: " + ", ".join(f"{k} {v:.3f}"
+                                      for k, v in stages_k.items()))
+    summary["paths"]["hierarchical"]["stage_ms"] = stages_k
+    del grams_k, grams_kg, lam_hat_k, res_k
+    phase_done("phase 3k")
+
+    # -- Phase 3k(b): the hierarchical path at 10^5 users -----------------
+    print(f"[3k(b)] hierarchical path at scale: {SCALE_USERS} users x "
+          f"{SCALE_SAMPLES} samples, d={SCALE_DIM}, {TASKS} tasks, "
+          f"top_k={TOP_K}, G={SCALE_GROUPS}, group_batch={SCALE_BATCH}")
+    t0 = time.perf_counter()
+    feats_s, tasks_s = make_task_feature_mixture(
+        SCALE_USERS, SCALE_SAMPLES, SCALE_DIM, TASKS, seed=SEED)
+    x_s = torch.from_numpy(feats_s).to(dev)
+    del feats_s
+    print(f"  data: {x_s.numel() * 4 / 2**20:.0f} MiB of features on the "
+          f"card (made in {time.perf_counter() - t0:.1f} s); the flat R "
+          f"would be {4 * SCALE_USERS ** 2 / 2**30:.1f} GiB")
+    batches_s = -(-SCALE_GROUPS // SCALE_BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    res_s = one_shot_clustering(
+        x_s, TASKS, cfg=cfg, cluster_cfg=ccfg, device=dev,
+        hierarchy_cfg=HierarchyConfig(n_groups=SCALE_GROUPS,
+                                      group_batch=SCALE_BATCH))
+    labels_s = res_s.labels.cpu().numpy()
+    wall_scale = time.perf_counter() - t0
+    launches_scale = dict(dispatch.LAUNCHES)
+    _, mem_text = memory_line(torch, live)
+    ari_s = clu.adjusted_rand_index(labels_s, tasks_s)
+    print(f"  launches: {launches_scale}")
+    print(f"  wall {wall_scale:.3f} s, {mem_text}, ARI against the tasks "
+          f"{ari_s:.4f} (required 1.0), {SCALE_GROUPS} groups -> "
+          f"{int(res_s.entry_counts.numel())} entries")
+    record("hierarchical_scale", wall_scale, live, ari=ari_s,
+           launches=launches_scale)
+    require(labels_s.shape == (SCALE_USERS,) and ari_s == 1.0,
+            f"3k(b): ARI {ari_s:.4f} against the tasks < 1")
+    require(launches_scale["eigproject"] == batches_s
+            and launches_scale["linkage"] == batches_s + 1,
+            f"3k(b): not one eigproject and NN-chain launch a batch of "
+            f"groups ({batches_s}) plus the global NN-chain")
+    # Where the peak comes from: the batched eigh of one batch's Grams
+    # alone (report only).
+    users_b = SCALE_USERS // SCALE_GROUPS * SCALE_BATCH
+    grams_s = sim.batched_gram(x_s[:users_b])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live_b = torch.cuda.memory_allocated()
+    sim.spectrum(grams_s, TOP_K)
+    eigh_gib = (torch.cuda.max_memory_allocated() - live_b) / 2**30
+    print(f"  the batched eigh of one batch's {users_b} Grams alone: "
+          f"{eigh_gib:.2f} GiB above live")
+    summary["paths"]["hierarchical_scale"]["batch_eigh_gib"] = eigh_gib
+    del x_s, res_s, grams_s
+    torch.cuda.empty_cache()
+    phase_done("phase 3k(b)")
+
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "
           "shapes (CUDA events)")
@@ -2418,6 +2681,122 @@ def main() -> int:
           f"({dev_how}), {t_dev * 1e3 / iters:.3f} us an iteration over "
           f"{iters}; "
           f"byte bound {b:.4f} ms")
+    us_per_iter = t_dev * 1e3 / iters
+
+    # The group axis at the hierarchical cell's group shape (phase 3k: 8
+    # groups of 128 of the dense cell's users, whose Grams are phase 3's
+    # in the same order).  eigproject: held to 8 single calls (1e-6 x
+    # max|plain|, bit-equality reported) and to the plain version and the
+    # 1xTF32 emulation as at the dense shape; 2 B Ng^2 d^2 k operations
+    # as 3xTF32.  The library call: one batched matmul over the groups
+    # (16 users of each group a call) and vector_norm.
+    gg = grams.view(HIER_GROUPS, ng_k, d_, d_)
+    vg = v.view(HIER_GROUPS, ng_k, d_, k_)
+    gp_out = project_norms_grouped(gg, vg)
+    single = torch.stack([project_norms_all(gg[i], vg[i])
+                          for i in range(HIER_GROUPS)])
+    gp_single_err = check_close(
+        torch, f"eigproject grouped ({HIER_GROUPS}, {ng_k}, {d_}, {k_}) "
+        f"against {HIER_GROUPS} single calls", gp_out, single, 1e-6)
+    gp_bit_equal = torch.equal(gp_out, single)
+    gp_err, gp_err_1x = check_split(
+        torch, f"eigproject grouped ({HIER_GROUPS}, {ng_k}, {d_}, {k_})",
+        gp_out, project_norms_grouped_ref(gg, vg),
+        torch.stack([project_norms_all_tf32(gg[i], vg[i], 1)
+                     for i in range(HIER_GROUPS)]))
+    require(torch.equal(gp_out, project_norms_grouped(gg, vg)),
+            "eigproject grouped: two runs on the same inputs differ")
+    del gp_out, single
+
+    def library_grouped():
+        out = torch.empty((HIER_GROUPS, ng_k, ng_k, k_), device=dev)
+        for s_ in range(0, ng_k, 16):
+            out[:, s_:s_ + 16] = torch.linalg.vector_norm(
+                torch.matmul(gg[:, s_:s_ + 16, None], vg[:, None]), dim=-2)
+        return out
+
+    t_kernel = time_ms(torch, lambda: project_norms_grouped(gg, vg), 5)
+    t_dev, dev_how = device_ms(
+        torch, lambda: project_norms_grouped(gg, vg), 5)
+    t_plain = time_ms(torch, lambda: project_norms_grouped_ref(gg, vg), 3)
+    t_lib = time_ms(torch, library_grouped, 3)
+    b, by, b32 = split_bound_ms(
+        2.0 * HIER_GROUPS * ng_k * ng_k * d_ * d_ * k_,
+        4.0 * (HIER_GROUPS * ng_k * (d_ * d_ + d_ * k_ + ng_k * k_)))
+    print(f"  eigproject grouped: {HIER_GROUPS * ng_k} users x "
+          f"{-(-ng_k * k_ // 128)} slabs of their group's columns, one "
+          f"launch; bit-equal to {HIER_GROUPS} single calls: {gp_bit_equal}; "
+          f"{t_kernel:.3f} ms a call, device time {t_dev:.3f} ms "
+          f"({dev_how}), split bound {b:.3f} ms; library {t_lib:.3f} ms")
+    kernels.append(dict(
+        name="eigproject_grouped", route="cuda",
+        source="src/repro_torch/kernels/csrc/eigproject.cu",
+        replaces="src/repro/kernels/eigproject/eigproject.py:53",
+        launches=launches_k["eigproject"], max_abs_err=gp_err,
+        emulated_1xtf32_err=gp_err_1x, single_calls_err=gp_single_err,
+        bit_equal_to_single_calls=gp_bit_equal, ms=t_kernel,
+        device_ms=t_dev, device_time_by=dev_how, plain_ms=t_plain,
+        bound_ms=b, bound_by=by, bound_fp32_ms=b32, library_ms=t_lib,
+        library_call="torch.matmul(G, V) batched over the groups, 16 users "
+                     "of each a call, vector_norm (fp32, TF32 off)",
+        shape=[HIER_GROUPS, ng_k, d_, k_]))
+
+    # The NN-chain with its group axis on phase 3k's group R (8 chains of
+    # 128 leaves, one block each): merges, heights and steps equal to 8
+    # single calls and to the plain loop.  The chains run side by side, so
+    # the longest group's dependent iterations set its time; its time an
+    # iteration is printed beside the dense chain's.
+    prepared_k = big_r_k.clone()
+    prepared_k.diagonal(dim1=1, dim2=2).fill_(float("-inf"))
+    work_k = prepared_k.clone()
+
+    def reset_k():
+        work_k.copy_(prepared_k)
+
+    mg, hg, sg = nn_chain_grouped(prepared_k.clone())
+    singles = [lk_ops._nn_chain_counted(prepared_k[i].clone())
+               for i in range(HIER_GROUPS)]
+    require(all(torch.equal(mg[i], m1) and torch.equal(hg[i], h1)
+                and int(sg[i]) == int(c1[0]) == ng_k - 1
+                for i, (m1, h1, c1) in enumerate(singles)),
+            "nn_chain grouped differs from the single calls")
+    t_plain0 = time.perf_counter()
+    want = nn_chain_grouped_ref(prepared_k.clone())
+    torch.cuda.synchronize()
+    t_plain = (time.perf_counter() - t_plain0) * 1e3
+    require(all(torch.equal(a_, b_) for a_, b_ in zip((mg, hg, sg), want)),
+            "nn_chain grouped differs from the plain loop")
+    iters_k = [int(c1[1]) for _, _, c1 in singles]
+    t_kernel = time_ms(torch, lambda: nn_chain_grouped(work_k), 5,
+                       setup=reset_k)
+
+    def chain_call_k():
+        reset_k()
+        nn_chain_grouped(work_k)
+
+    t_dev, dev_how = device_ms(torch, chain_call_k, 5)
+    t_dev -= device_ms(torch, reset_k, 5)[0]
+    dev_how += ", less the reset's copy of R"
+    b, by = bound_ms(4.0 * HIER_GROUPS * ng_k * (ng_k - 1),
+                     4.0 * HIER_GROUPS * ng_k * ng_k
+                     + 12.0 * HIER_GROUPS * (ng_k - 1))
+    us_group = t_dev * 1e3 / max(iters_k)
+    print(f"  nn_chain grouped ({HIER_GROUPS} x {ng_k} leaves): equal to "
+          f"{HIER_GROUPS} single calls and the plain loop (exact); "
+          f"iterations by group {iters_k}; {t_kernel:.3f} ms a call, device "
+          f"time {t_dev:.4f} ms ({dev_how}), {us_group:.3f} us an "
+          f"iteration of the longest group's {max(iters_k)} (the dense "
+          f"chain's: {us_per_iter:.3f}); byte bound {b:.4f} ms")
+    kernels.append(dict(
+        name="linkage_grouped", route="cuda",
+        source="src/repro_torch/kernels/csrc/linkage.cu",
+        replaces="src/repro/kernels/linkage/linkage.py:68",
+        launches=launches_k["linkage"] - 1,
+        max_abs_err=max_err(torch, hg, want[1]), ms=t_kernel,
+        device_ms=t_dev, device_time_by=dev_how, plain_ms=t_plain,
+        bound_ms=b, bound_by=by, library_ms=None, iterations=iters_k,
+        us_per_iteration=us_group, shape=[HIER_GROUPS, ng_k]))
+    del prepared_k, work_k
 
     # featurize_gram at the raw path's shapes, all rows in one launch:
     # fp32 (the main path's compute dtype) as 3xTF32, held to 1e-5 x

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.cluster_engine import ClusterConfig
+from repro_torch.core.hierarchy import HierarchyConfig
 from repro_torch.core.membership_engine import MembershipConfig
 from repro_torch.core.signature_engine import SignatureConfig
 from repro_torch.core.similarity import SimilarityConfig
@@ -40,6 +41,7 @@ from repro_torch.models import transformer
 
 __all__ = ["similarity_config_from_reference",
            "cluster_config_from_reference", "signatures_from_reference",
+           "hierarchy_config_from_reference",
            "feature_config_from_reference",
            "signature_config_from_reference", "phi_params_from_reference",
            "membership_config_from_reference", "lm_params_from_reference",
@@ -66,6 +68,14 @@ def cluster_config_from_reference(cfg) -> ClusterConfig:
     return ClusterConfig(
         backend="numpy" if cfg.backend == "numpy" else "torch",
         linkage=cfg.linkage)
+
+
+def hierarchy_config_from_reference(cfg) -> HierarchyConfig:
+    """A reference ``HierarchyConfig`` -> the port's (the same fields)."""
+    return HierarchyConfig(n_groups=cfg.n_groups,
+                           group_clusters=cfg.group_clusters,
+                           group_batch=cfg.group_batch,
+                           assignment=cfg.assignment)
 
 
 def signatures_from_reference(lam, v, grams=None,

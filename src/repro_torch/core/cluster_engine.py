@@ -28,7 +28,7 @@ from repro_torch.kernels.linkage import ops as lk_ops
 from repro_torch.kernels.linkage.ref import LINKAGES
 
 __all__ = ["ClusterConfig", "ClusterEngine", "DeviceDendrogram",
-           "CLUSTER_BACKENDS", "cut_device"]
+           "CLUSTER_BACKENDS", "cut_device", "cut_device_grouped"]
 
 CLUSTER_BACKENDS = ("numpy", "torch")
 
@@ -77,16 +77,37 @@ def cut_device(merge_rows: torch.Tensor, heights: torch.Tensor,
     """Labels from chain-order merges: apply the ``N - T`` highest merges
     as a union forest (dying row -> surviving row), resolve roots by
     ``ceil(log2 N)`` pointer-jumping rounds, and number clusters by
-    sorted root."""
+    sorted root.  One group of ``cut_device_grouped``."""
+    return cut_device_grouped(merge_rows[None], heights[None], n_leaves,
+                              n_clusters)[0]
+
+
+def cut_device_grouped(merge_rows: torch.Tensor, heights: torch.Tensor,
+                       n_leaves: int, n_clusters: int) -> torch.Tensor:
+    """``cut_device`` on each group of a group axis at once:
+    ``merge_rows (B, n-1, 2)``, ``heights (B, n-1)`` -> labels ``(B, n)``
+    int32, each group's clusters numbered ``0..T-1`` by sorted root.
+
+    Group b's leaves are offset by ``b n``, so the B union forests are one
+    forest over ``B n`` leaves, pointer-jumped together; one sorted
+    ``unique`` over all roots numbers group b's clusters ``b T .. b T + T
+    - 1`` in root order (every group keeps exactly T roots), and
+    subtracting ``b T`` gives the per-group numbering."""
+    batch = merge_rows.shape[0]
+    dev = merge_rows.device
     keep = n_leaves - n_clusters
-    order = torch.argsort(-heights, stable=True)
-    sel = order[:keep]
-    parent = torch.arange(n_leaves, dtype=torch.int64,
-                          device=merge_rows.device)
-    parent[merge_rows[sel, 1].long()] = merge_rows[sel, 0].long()
+    order = torch.argsort(-heights, dim=1, stable=True)[:, :keep]
+    sel = torch.gather(merge_rows.long(), 1,
+                       order[..., None].expand(-1, -1, 2))     # (B, keep, 2)
+    offset = (torch.arange(batch, device=dev) * n_leaves)[:, None]
+    parent = torch.arange(batch * n_leaves, dtype=torch.int64, device=dev)
+    parent[(sel[..., 1] + offset).reshape(-1)] = \
+        (sel[..., 0] + offset).reshape(-1)
     for _ in range(max(1, math.ceil(math.log2(max(n_leaves, 2))))):
         parent = parent[parent]
     _, labels = torch.unique(parent, sorted=True, return_inverse=True)
+    labels = labels.reshape(batch, n_leaves) \
+        - (torch.arange(batch, device=dev) * n_clusters)[:, None]
     return labels.to(torch.int32)
 
 

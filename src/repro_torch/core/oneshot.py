@@ -2,7 +2,9 @@
 
 Mirrors ``src/repro/core/oneshot.py`` on one device: the
 ``ProtocolEngine`` (Eqs. 1-5; dense, blockwise, landmarks, or from raw
-data), the ``ClusterEngine`` (HAC + cut) and the communication ledger.
+data), the ``ClusterEngine`` (HAC + cut) and the communication ledger;
+``hierarchy_cfg`` routes to the two-level protocol of
+``core/hierarchy.py``.
 With the torch cluster backend, ``R`` and the labels stay on the device
 from protocol to labels.
 """
@@ -161,8 +163,8 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
                         feature_cfg=None,
                         probe: np.ndarray | None = None,
                         signature_cfg=None,
-                        device: str | torch.device = "cuda"
-                        ) -> OneShotResult:
+                        device: str | torch.device = "cuda",
+                        hierarchy_cfg=None):
     """Run paper Algorithm 2 end to end on per-user feature matrices.
 
     ``features``: a list of ``(n_i, d)`` arrays, or a padded ``(N, n, d)``
@@ -180,6 +182,14 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
     (configured by ``signature_cfg``), with no host Phi stage and no
     ``(N, n, d)`` feature stack.  ``probe`` carries the public ``pca``
     probe set.
+
+    Hierarchical entry point: passing ``hierarchy_cfg`` (a
+    ``repro_torch.core.hierarchy.HierarchyConfig``) routes to the
+    two-level edge-group protocol, O(G (N/G)^2 + (G T_g)^2) instead of
+    O(N^2), and returns a ``HierarchicalResult``: the same ``labels`` /
+    ``lam`` / ``v`` / ``ledger`` contract (``from_oneshot`` serves it),
+    and no N x N ``similarity`` or dendrogram.  Pre-featurised users
+    only; the cluster backend defaults to the device NN-chain.
     """
     if not isinstance(model_params, numbers.Integral):
         # The reference's fourth positional argument is the linkage; here
@@ -192,6 +202,17 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
                                 or signature_cfg is not None):
         raise ValueError("probe/signature_cfg configure the raw-data "
                          "entry point; pass feature_cfg to enable it")
+    if hierarchy_cfg is not None:
+        if feature_cfg is not None:
+            raise ValueError("the hierarchical path consumes pre-"
+                             "featurized users; run the SignatureEngine "
+                             "separately before hierarchy_cfg")
+        from repro_torch.core.hierarchy import hierarchical_one_shot
+
+        return hierarchical_one_shot(
+            features, n_clusters, cfg=cfg, hierarchy_cfg=hierarchy_cfg,
+            cluster_cfg=cluster_cfg, n_valid=n_valid,
+            model_params=model_params, device=device)
     engine = ProtocolEngine(cfg, device=device)
     if feature_cfg is not None:
         res = engine.run_raw(features, feature_cfg, n_valid=n_valid,

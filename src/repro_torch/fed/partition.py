@@ -9,8 +9,9 @@ conv layers of its CNN) through the GPS.  The port's parameters are flat
 dicts.  ``stack_layout`` and ``admit_layout`` say where each user sits in
 the trainer's ``(T, C_max)`` cluster super-stack, and how admitted
 arrivals slot into an existing stack without changing its shape; the
-membership launcher keeps that layout up to date.  The edge-grouped
-layout waits for the hierarchical path, ROADMAP Queue 1 item 10.
+membership launcher keeps that layout up to date.
+``group_stack_layout`` is the edge-grouped ``(G, T, C_max)`` layout of
+the hierarchical protocol.
 
 Out-of-range labels (the ``-1`` unassigned convention among them) get
 the reference's sentinel coordinates ``rows == T`` and ``slot == C_max``.
@@ -27,7 +28,8 @@ import torch
 PathPred = Callable[[str], bool]
 
 __all__ = ["tree_paths", "prefix_predicate", "split_params", "merge_params",
-           "tree_path_map", "stack_layout", "admit_layout"]
+           "tree_path_map", "stack_layout", "group_stack_layout",
+           "admit_layout"]
 
 
 def tree_paths(params: Mapping[str, Any]) -> list[str]:
@@ -118,6 +120,38 @@ def stack_layout(labels, n_clusters: int, c_max: int | None = None
                        device=labels.device)
     mask[rows[valid].long(), slot[valid].long()] = 1.0
     return rows, slot, mask
+
+
+def group_stack_layout(labels, group_ids, n_groups: int, n_clusters: int,
+                       c_max: int | None = None
+                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor]:
+    """Edge-grouped ``(G, T, C_max)`` super-stack layout for the
+    hierarchical protocol (``core.hierarchy``): each edge server holds
+    only its members of each global cluster, so its trainer stack is the
+    ``(T, C_max)`` slice ``mask[g]``.
+
+    ``labels (N,)`` global cluster ids + ``group_ids (N,)`` edge groups
+    -> ``(grows (N,), rows (N,), slot (N,), mask (G, T, C_max))``, the
+    contract of ``stack_layout``: any invalid label or group id gets the
+    out-of-range ``(G, T, C_max)`` sentinel triple.  ``c_max`` bounds the
+    largest per-group cluster, and an undersized value raises.
+    """
+    labels = _labels(labels)
+    gids = _labels(group_ids, labels.device)
+    if labels.shape != gids.shape:
+        raise ValueError(f"labels {tuple(labels.shape)} and group_ids "
+                         f"{tuple(gids.shape)} must align")
+    valid = ((labels >= 0) & (labels < n_clusters)
+             & (gids >= 0) & (gids < n_groups))
+    # One flat (group, cluster) index reuses stack_layout's stable rank
+    # and sentinels.
+    combined = torch.where(valid, gids * n_clusters + labels, -1)
+    _, slot, mask = stack_layout(combined, n_groups * n_clusters,
+                                 c_max=c_max)
+    grows = torch.where(valid, gids, n_groups).to(torch.int32)
+    rows = torch.where(valid, labels, n_clusters).to(torch.int32)
+    return grows, rows, slot, mask.reshape(n_groups, n_clusters, -1)
 
 
 def admit_layout(mask, new_labels, n_clusters: int | None = None

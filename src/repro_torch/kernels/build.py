@@ -42,10 +42,11 @@ _SIGNATURES = {
     "repro_gram": (_P, _P, _P, _I, _I, _I, _P),
     "repro_gram_plan": (_I, _P, _P),
     "repro_project_norms": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "repro_project_norms_grouped": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "repro_eigproject_split": (_P, _P, _I, _I, _I, _P),
     "repro_eigproject_plan": (_I, _P, _P),
     "repro_linkage_step": (_P, _P, _F, _F, _P, _P, _P, _P, _I, _I, _P),
-    "repro_nn_chain": (_P, _I, _I, _I, _P, _P, _P, _P, _P),
+    "repro_nn_chain": (_P, _I, _I, _I, _I, _P, _P, _P, _P, _P),
     "repro_nn_chain_plan": (_I, _P, _P),
     "repro_featurize_gram": (_P, _L, _P, _I, _P, _I, _I, _I, _I, _I, _I,
                              _I, _P),

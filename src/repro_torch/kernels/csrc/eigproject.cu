@@ -7,6 +7,11 @@
 // (pallas_call at :66), which the reference calls once per (i, j) pair,
 // NG * NV times, from similarity.relevance_matrix.
 //
+// With a group axis (repro_project_norms_grouped, for the hierarchical
+// protocol, which the reference vmaps over edge groups): G (B Ng, d, d)
+// and V (B Ng, d, k) -> out (B, Ng, Ng, k), each user against the
+// signatures of its own group only.
+//
 // Contract: fp32 in, fp32 out, G_i V never goes to device memory, and G
 // need not be symmetric.  The products run as 3xTF32 (mma.cuh: a = hi +
 // lo, a b = lo hi + hi lo + hi hi, each term exact in the tensor cores'
@@ -51,6 +56,13 @@
 //    in a fixed order, and a sqrt end the block.
 //  - Edges are zero-filled (TMA out of bounds, cp.async with zero
 //    size), so any d, k, NG and NV run.
+//  - Groups: one split of all B Ng k columns, then one norms launch whose
+//    blocks are (user, column tile inside its group's Ng k columns).  A
+//    tile starts at its group's first column, so each sum runs as in a
+//    single call on that group; a tile that runs past the group's last
+//    column reads the next group's columns (or TMA's zero fill) there and
+//    masks those stores.  The plain call is the case of one group that
+//    holds every user and all NV k columns.
 #include <string.h>
 
 #include "common.cuh"
@@ -105,7 +117,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 project_norms_kernel(const __grid_constant__ CUtensorMap gmap,
                      const __grid_constant__ CUtensorMap wmap,
                      const float* __restrict__ g, float* __restrict__ out,
-                     int d, int nq, int col_tiles, int tma) {
+                     int d, int group_users, int nq_group, int col_tiles,
+                     int tma) {
   extern __shared__ __align__(1024) unsigned char eig_smem[];
   unsigned char* smem =
       eig_smem + ((1024 - (smem_addr(eig_smem) & 1023)) & 1023);
@@ -113,7 +126,9 @@ project_norms_kernel(const __grid_constant__ CUtensorMap gmap,
   uint64_t* empty = full + kStages;
 
   const int64_t user = blockIdx.x / col_tiles;
-  const int q0 = (int)(blockIdx.x % col_tiles) * kCols;
+  // The group's first stacked column, and this tile's first column.
+  const int64_t qg = user / group_users * nq_group;
+  const int q0 = (int)(qg + (int64_t)(blockIdx.x % col_tiles) * kCols);
   const int ksteps = repro_ceil_div(d, kBK);
   const int total = repro_ceil_div(d, kRows) * ksteps;
 
@@ -274,11 +289,12 @@ project_norms_kernel(const __grid_constant__ CUtensorMap gmap,
         red[(ct / 32) * kCols + 8 * q + 2 * lane + e] = sq[2 * q + e];
   }
   named_sync(3, kConsumers);
-  if (ct < kCols && q0 + ct < nq) {
+  const int64_t q = q0 - qg + ct;  // column inside the group
+  if (ct < kCols && q < nq_group) {
     float s = 0.f;
 #pragma unroll
     for (int w = 0; w < kConsumers / 32; ++w) s += red[w * kCols + ct];
-    out[user * (int64_t)nq + q0 + ct] = sqrtf(s);
+    out[user * (int64_t)nq_group + q] = sqrtf(s);
   }
 }
 
@@ -316,16 +332,18 @@ REPRO_EXPORT int64_t repro_eigproject_plan(int d, int* pitch, int* tma) {
   return kSmemBytes;
 }
 
-// g (n_g, d, d), v (n_v, d, k) fp32 contiguous, g 16-byte aligned where
-// 4 d % 16 == 0; wt (2, n_v k, dp) fp32 scratch, 16-byte aligned
-// -> out (n_g, n_v, k).
-REPRO_EXPORT int repro_project_norms(const float* g, const float* v,
-                                     float* wt, float* out, int n_g, int n_v,
-                                     int d, int k, void* stream) {
-  if (n_g <= 0 || n_v <= 0 || k <= 0) return 0;
-  if (d <= 0) return (int)cudaErrorInvalidValue;
+// Users u = 0 .. n_g - 1 in groups of group_users; user u projects the
+// n_col = nq_group / k signatures of its group, those of v rows
+// u / group_users * n_col onward.  g (n_g, d, d), v (n_v, d, k) fp32
+// contiguous, g 16-byte aligned where 4 d % 16 == 0; wt (2, n_v k, dp)
+// fp32 scratch, 16-byte aligned -> out (n_g, nq_group).
+static int launch_norms(const float* g, const float* v, float* wt,
+                        float* out, int n_g, int group_users, int nq_group,
+                        int n_v, int d, int k, cudaStream_t st) {
+  if (n_g <= 0 || n_v <= 0 || k <= 0 || nq_group <= 0) return 0;
+  if (d <= 0 || group_users <= 0) return (int)cudaErrorInvalidValue;
   const int64_t nq = (int64_t)n_v * k;
-  const int col_tiles = repro_ceil_div(nq, kCols);
+  const int col_tiles = repro_ceil_div(nq_group, kCols);
   const int64_t blocks = (int64_t)n_g * col_tiles;
   if (nq > 0x7fffffff || blocks > 0x7fffffff)
     return (int)cudaErrorInvalidConfiguration;
@@ -356,7 +374,6 @@ REPRO_EXPORT int repro_project_norms(const float* g, const float* v,
                                  CU_TENSOR_MAP_SWIZZLE_128B);
     if (rc) return rc;
   }
-  cudaStream_t st = (cudaStream_t)stream;
   int rc = launch_split(v, wt, n_v, d, k, st);
   if (rc) return rc;
   cudaError_t err = cudaFuncSetAttribute(
@@ -364,6 +381,33 @@ REPRO_EXPORT int repro_project_norms(const float* g, const float* v,
       kSmemBytes);
   if (err != cudaSuccess) return (int)err;
   project_norms_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, st>>>(
-      gmap, wmap, g, out, d, (int)nq, col_tiles, tma);
+      gmap, wmap, g, out, d, group_users, nq_group, col_tiles, tma);
   return (int)cudaGetLastError();
+}
+
+// g (n_g, d, d), v (n_v, d, k) fp32 contiguous, g 16-byte aligned where
+// 4 d % 16 == 0; wt (2, n_v k, dp) fp32 scratch, 16-byte aligned
+// -> out (n_g, n_v, k).
+REPRO_EXPORT int repro_project_norms(const float* g, const float* v,
+                                     float* wt, float* out, int n_g, int n_v,
+                                     int d, int k, void* stream) {
+  if ((int64_t)n_v * k > 0x7fffffff)
+    return (int)cudaErrorInvalidConfiguration;
+  return launch_norms(g, v, wt, out, n_g, n_g, n_v * k, n_v, d, k,
+                      (cudaStream_t)stream);
+}
+
+// The group axis: g (b ng, d, d), v (b ng, d, k) fp32 contiguous, g
+// 16-byte aligned where 4 d % 16 == 0; wt (2, b ng k, dp) fp32 scratch,
+// 16-byte aligned -> out (b, ng, ng, k), out[b][i][j][c] = ||G_{b ng + i}
+// V_{b ng + j}[:, c]||.  One split and one norms launch for all groups.
+REPRO_EXPORT int repro_project_norms_grouped(const float* g, const float* v,
+                                             float* wt, float* out, int b,
+                                             int ng, int d, int k,
+                                             void* stream) {
+  const int64_t users = (int64_t)b * ng;
+  if (users > 0x7fffffff || (int64_t)ng * k > 0x7fffffff)
+    return (int)cudaErrorInvalidConfiguration;
+  return launch_norms(g, v, wt, out, (int)users, ng, ng * k, (int)users, d,
+                      k, (cudaStream_t)stream);
 }

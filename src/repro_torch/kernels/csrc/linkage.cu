@@ -9,7 +9,12 @@
 //       contract (row_a, row_b, size_a, size_b, mask) -> (row, argmax,
 //       max), kept so the step can be held against its plain version.
 //   (b) repro_nn_chain: the whole NN-chain in one call, a first pass over
-//       R with many blocks, then one persistent block for the chain.
+//       R with many blocks, then one persistent block for the chain; over
+//       a group axis, B independent chains on s (B, n, n) in one call
+//       (the hierarchical protocol's group stage, which the reference
+//       vmaps): the first pass over all B n rows, then one block a group,
+//       each with its own slice of the scratch, its own merges, heights
+//       and counters.  A group whose R holds NaN stops short alone.
 //
 // Bound on the H100: a few operations an element, so the bytes bound the
 // function: R (n^2 fp32) read once, 1.3 us at n = 1024.  The loop itself
@@ -292,13 +297,18 @@ __device__ __forceinline__ void row_argmax(const float* row, int c, int n,
 }
 
 // First pass: every row's nearest neighbour (all leaves live), a warp a
-// row; sizes 1, all alive.
+// row, over the rows of every group of the batch (group b's matrix and
+// state words b n^2 and b state_words on); sizes 1, all alive.
 template <int kLinkage>
 __global__ void __launch_bounds__(kInitWarps * 32)
-nn_init_kernel(const float* s, int n, int* scratch) {
-  ChainState st(scratch, n);
-  const int c = blockIdx.x * kInitWarps + threadIdx.x / 32;
-  if (c >= n) return;
+nn_init_kernel(const float* s, int n, int64_t rows, int64_t state_words,
+               int* scratch) {
+  const int64_t row = (int64_t)blockIdx.x * kInitWarps + threadIdx.x / 32;
+  if (row >= rows) return;
+  const int64_t b = row / n;
+  const int c = (int)(row % n);
+  s += b * n * n;
+  ChainState st(scratch + b * state_words, n);
   const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(s) % 16 == 0;
   uint32_t bk;
   int bi;
@@ -312,7 +322,9 @@ nn_init_kernel(const float* s, int n, int* scratch) {
 }
 
 // The NN-chain loop of core/cluster_engine.py::_nn_chain on one block,
-// with every live row's nearest neighbour cached in (nnk, nni).  kSmem:
+// with every live row's nearest neighbour cached in (nnk, nni); block b
+// runs group b's chain on its own slices of s, the outputs and the
+// scratch (one block, b = 0, without a group axis).  kSmem:
 // the per-leaf state lives in shared memory (copied from the scratch),
 // else in the scratch itself.  s (n, n) is the prepared linkage matrix
 // (diagonal -inf), updated in place at live entries only; merges (n-1,
@@ -329,8 +341,16 @@ nn_init_kernel(const float* s, int n, int* scratch) {
 template <int kLinkage, bool kSmem>
 __global__ void __launch_bounds__(kChainThreads, 1)
 nn_chain_kernel(float* s, int n, int max_iter, int* merges, float* heights,
-                int* counters, int* scratch) {
+                int* counters, int* scratch, int64_t state_words) {
   constexpr int linkage = kLinkage;
+  {
+    const int64_t b = blockIdx.x;
+    s += b * n * n;
+    merges += b * 2 * (n - 1);
+    heights += b * (n - 1);
+    counters += b * 3;
+    scratch += b * state_words;
+  }
   extern __shared__ __align__(16) unsigned char chain_smem[];
   __shared__ uint32_t part_k[kChainWarps];
   __shared__ int part_i[kChainWarps];
@@ -532,14 +552,17 @@ REPRO_EXPORT int repro_nn_chain_clocks(unsigned long long* out) {
 #endif
 
 template <int kLinkage>
-int launch_chain(float* s, int n, int max_iter, int* merges, float* heights,
-                 int* counters, int* scratch, cudaStream_t st) {
+int launch_chain(float* s, int batch, int n, int max_iter, int* merges,
+                 float* heights, int* counters, int* scratch,
+                 cudaStream_t st) {
   int route_smem = 0;
   int64_t scratch_bytes = 0;
   const int64_t smem = repro_nn_chain_plan(n, &route_smem, &scratch_bytes);
-  nn_init_kernel<kLinkage>
-      <<<repro_ceil_div(n, kInitWarps), kInitWarps * 32, 0, st>>>(s, n,
-                                                                 scratch);
+  const int64_t rows = (int64_t)batch * n;
+  const int64_t init_blocks = (rows + kInitWarps - 1) / kInitWarps;
+  if (init_blocks > 0x7fffffff) return (int)cudaErrorInvalidConfiguration;
+  nn_init_kernel<kLinkage><<<(unsigned)init_blocks, kInitWarps * 32, 0, st>>>(
+      s, n, rows, scratch_bytes / 4, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   auto kernel = route_smem ? nn_chain_kernel<kLinkage, true>
@@ -549,31 +572,33 @@ int launch_chain(float* s, int n, int max_iter, int* merges, float* heights,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  kernel<<<1, kChainThreads, (size_t)smem, st>>>(s, n, max_iter, merges,
-                                                 heights, counters, scratch);
+  kernel<<<batch, kChainThreads, (size_t)smem, st>>>(
+      s, n, max_iter, merges, heights, counters, scratch, scratch_bytes / 4);
   return (int)cudaGetLastError();
 }
 
-// s (n, n) fp32 contiguous, updated in place; scratch of
-// repro_nn_chain_plan's bytes; counters (3,) int32.  The linkage is a
-// template parameter of the kernels, so each holds one linkage's code:
+// s (batch, n, n) fp32 contiguous, batch independent chains (1 without a
+// group axis), each matrix updated in place; merges (batch, n-1, 2),
+// heights (batch, n-1), counters (batch, 3) int32; scratch of batch x
+// repro_nn_chain_plan's bytes.  One chain block a matrix.  The linkage is
+// a template parameter of the kernels, so each holds one linkage's code:
 // the chain is a sequence of short dependent steps, and its time grows
 // with the instructions each step has to fetch.
-REPRO_EXPORT int repro_nn_chain(float* s, int n, int linkage, int max_iter,
-                                int* merges, float* heights, int* counters,
-                                void* scratch, void* stream) {
-  if (n < 2) return 0;
+REPRO_EXPORT int repro_nn_chain(float* s, int batch, int n, int linkage,
+                                int max_iter, int* merges, float* heights,
+                                int* counters, void* scratch, void* stream) {
+  if (n < 2 || batch <= 0) return 0;
   int* w = static_cast<int*>(scratch);
   cudaStream_t st = (cudaStream_t)stream;
   switch (linkage) {
     case kAverage:
-      return launch_chain<kAverage>(s, n, max_iter, merges, heights,
+      return launch_chain<kAverage>(s, batch, n, max_iter, merges, heights,
                                     counters, w, st);
     case kSingle:
-      return launch_chain<kSingle>(s, n, max_iter, merges, heights, counters,
-                                   w, st);
+      return launch_chain<kSingle>(s, batch, n, max_iter, merges, heights,
+                                   counters, w, st);
     case kComplete:
-      return launch_chain<kComplete>(s, n, max_iter, merges, heights,
+      return launch_chain<kComplete>(s, batch, n, max_iter, merges, heights,
                                      counters, w, st);
   }
   return (int)cudaErrorInvalidValue;

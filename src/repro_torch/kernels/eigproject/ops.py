@@ -3,7 +3,8 @@
 ``project_norms`` keeps the reference's single-pair contract
 (``src/repro/kernels/eigproject/ops.py``); ``project_norms_all`` covers
 every ``(i, j)`` pair in one call, where the reference called its kernel
-once per pair.  ``G_i V`` never goes to device memory.  The kernel runs
+once per pair; ``project_norms_grouped`` covers the pairs inside each
+group of a group axis in one call (the hierarchical protocol).  ``G_i V`` never goes to device memory.  The kernel runs
 its products as 3xTF32 on the tensor cores; the wrapper gives it a
 scratch buffer for the stacked signature matrix split once into TF32 hi
 and lo (``ref.split_w_ref`` is its plain version), which the same call
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.eigproject.ref import (project_norms_all_ref,
+                                                project_norms_grouped_ref,
                                                 split_pitch)
 
 _INT_MAX = 2**31 - 1
@@ -103,6 +105,41 @@ def project_norms_all(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
                                      wt.data_ptr(), out.data_ptr(), n_g,
                                      n_v, d, k, dispatch.stream_of(g))
     build.check(rc, "eigproject")
+    dispatch.count_launch("eigproject")
+    return out
+
+
+def project_norms_grouped(g: torch.Tensor, v: torch.Tensor
+                          ) -> torch.Tensor:
+    """The group axis: ``g (B, Ng, d, d)``, ``v (B, Ng, d, k)`` ->
+    ``(B, Ng, Ng, k)`` fp32 with ``out[b, i, j, c] = ||g[b, i] @ v[b,
+    j][:, c]||_2``.  One split of all ``B Ng k`` signature columns and one
+    norms launch whose blocks each score one user against a column tile
+    of its own group."""
+    if g.ndim != 4 or v.ndim != 4 or g.shape[2] != g.shape[3] \
+            or v.shape[:3] != g.shape[:3]:
+        raise ValueError(f"bad shapes g={tuple(g.shape)} v={tuple(v.shape)}")
+    if not dispatch.on_cuda(g, v):
+        return project_norms_grouped_ref(g, v)
+    if g.dtype != torch.float32 or v.dtype != torch.float32:
+        raise TypeError(f"the eigproject kernel takes float32, got "
+                        f"{g.dtype} and {v.dtype}")
+    b, ng, d, _ = g.shape
+    k = v.shape[-1]
+    if b * ng > _INT_MAX or b * ng * k > _INT_MAX:
+        raise ValueError(f"too many signature columns: {b} x {ng} x {k}")
+    g = dispatch.aligned16(g)
+    v = v.contiguous()
+    out = torch.empty((b, ng, ng, k), device=g.device, dtype=torch.float32)
+    if out.numel() == 0:
+        return out
+    wt = torch.empty((2, b * ng * k, split_pitch(d)), device=g.device,
+                     dtype=torch.float32)
+    with torch.cuda.device(g.device):
+        rc = build.library().repro_project_norms_grouped(
+            g.data_ptr(), v.data_ptr(), wt.data_ptr(), out.data_ptr(), b,
+            ng, d, k, dispatch.stream_of(g))
+    build.check(rc, "eigproject (grouped)")
     dispatch.count_launch("eigproject")
     return out
 

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the eigen-projection kernel.
 
-``project_norms_all_ref`` is the function in fp32.  ``split_w_ref`` is
+``project_norms_all_ref`` is the function in fp32, and
+``project_norms_grouped_ref`` the same on each group of a group axis.  ``split_w_ref`` is
 the kernel's first step, the stacked signature matrix ``W = [V_0 | V_1 |
 ...]`` split once into TF32 hi and lo and laid out as the products read
 it; ``project_norms_all_tf32`` is the kernel's arithmetic (3xTF32, or
@@ -36,6 +37,18 @@ def project_norms_all_ref(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     for s in range(0, n_g, step):
         proj = g[s:s + step, None] @ v[None]          # (c, NV, d, k)
         out[s:s + step] = torch.sqrt(torch.sum(proj * proj, dim=-2))
+    return out
+
+
+def project_norms_grouped_ref(g: torch.Tensor, v: torch.Tensor
+                              ) -> torch.Tensor:
+    """The group axis: ``g (B, Ng, d, d)``, ``v (B, Ng, d, k)`` ->
+    ``(B, Ng, Ng, k)``, ``project_norms_all_ref`` on each group."""
+    b, ng = g.shape[:2]
+    out = torch.empty((b, ng, v.shape[1], v.shape[-1]), device=g.device,
+                      dtype=torch.float32)
+    for i in range(b):
+        out[i] = project_norms_all_ref(g[i], v[i])
     return out
 
 

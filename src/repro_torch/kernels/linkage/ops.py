@@ -7,6 +7,9 @@ that caches every row's nearest neighbour, then one persistent block for
 the chain (``ref.nn_chain_cached_ref`` is the plain model of its cache).
 The reference ran its step kernel inside a jitted ``while_loop``; a host
 loop here would pay a launch and a round trip for each of about 3n steps.
+``nn_chain_grouped`` runs B independent chains in one call, one block a
+group (the hierarchical protocol's group stage, which the reference
+vmaps).
 """
 from __future__ import annotations
 
@@ -17,7 +20,9 @@ import torch
 
 from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.linkage.ref import (LINKAGES, linkage_step_ref,
-                                             max_iterations, nn_chain_ref)
+                                             max_iterations,
+                                             nn_chain_grouped_ref,
+                                             nn_chain_ref)
 
 #: Shared memory a block may use on the H100 (opt-in maximum), less the
 #: chain kernel's reserve for its static arrays.
@@ -99,13 +104,42 @@ def linkage_step(row_a: torch.Tensor, row_b: torch.Tensor, size_a, size_b,
     return row, idx[0], val[0]
 
 
-def _chain_input(s: torch.Tensor, linkage: str) -> int:
-    """The linkage's code; raises unless ``s`` is square."""
+def _chain_input(s: torch.Tensor, linkage: str, ndim: int = 2) -> int:
+    """The linkage's code; raises unless ``s`` is a square matrix
+    (``ndim`` 2) or a stack of them (``ndim`` 3)."""
     code = _linkage_code(linkage)
-    if s.ndim != 2 or s.shape[0] != s.shape[1]:
+    if s.ndim != ndim or s.shape[-1] != s.shape[-2]:
         raise ValueError(f"linkage matrix must be square, got "
                          f"{tuple(s.shape)}")
     return code
+
+
+def _run_chains(s: torch.Tensor, code: int, batch: int, n: int):
+    """The chain kernel on ``batch`` prepared ``(n, n)`` matrices laid out
+    one after another in the CUDA tensor ``s``, one block a matrix ->
+    ``(merges (batch, n-1, 2), heights (batch, n-1), counters (batch,
+    3))``."""
+    if s.dtype != torch.float32 or not s.is_contiguous():
+        raise TypeError("the nn_chain kernel updates a contiguous float32 "
+                        "matrix in place")
+    dev = s.device
+    merges = torch.zeros((batch, max(n - 1, 0), 2), dtype=torch.int32,
+                         device=dev)
+    heights = torch.zeros((batch, max(n - 1, 0)), dtype=torch.float32,
+                          device=dev)
+    counters = torch.zeros((batch, 3), dtype=torch.int32, device=dev)
+    if n < 2 or batch == 0:
+        return merges, heights, counters
+    scratch = torch.empty((batch * chain_plan(n).scratch,),
+                          dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        rc = build.library().repro_nn_chain(
+            s.data_ptr(), batch, n, code, max_iterations(n),
+            merges.data_ptr(), heights.data_ptr(), counters.data_ptr(),
+            scratch.data_ptr(), dispatch.stream_of(s))
+    build.check(rc, "nn_chain")
+    dispatch.count_launch("linkage")
+    return merges, heights, counters
 
 
 def nn_chain(s: torch.Tensor, linkage: str = "average"
@@ -136,25 +170,21 @@ def _nn_chain_counted(s: torch.Tensor, linkage: str = "average"
     code = _chain_input(s, linkage)
     if not dispatch.on_cuda(s):
         raise ValueError("the nn_chain kernel's counters need a CUDA tensor")
-    if s.dtype != torch.float32 or not s.is_contiguous():
-        raise TypeError("the nn_chain kernel updates a contiguous float32 "
-                        "matrix in place")
-    n = s.shape[0]
-    merges = torch.zeros((max(n - 1, 0), 2), dtype=torch.int32,
-                         device=s.device)
-    heights = torch.zeros((max(n - 1, 0),), dtype=torch.float32,
-                          device=s.device)
-    counters = torch.zeros((3,), dtype=torch.int32, device=s.device)
-    if n < 2:
-        return merges, heights, counters
-    scratch = torch.empty((chain_plan(n).scratch,), dtype=torch.uint8,
-                          device=s.device)
-    lib = build.library()
-    with torch.cuda.device(s.device):
-        rc = lib.repro_nn_chain(s.data_ptr(), n, code, max_iterations(n),
-                                merges.data_ptr(), heights.data_ptr(),
-                                counters.data_ptr(), scratch.data_ptr(),
-                                dispatch.stream_of(s))
-    build.check(rc, "nn_chain")
-    dispatch.count_launch("linkage")
-    return merges, heights, counters
+    merges, heights, counters = _run_chains(s, code, 1, s.shape[0])
+    return merges[0], heights[0], counters[0]
+
+
+def nn_chain_grouped(s: torch.Tensor, linkage: str = "average"
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``nn_chain`` on each matrix of ``s (B, n, n)`` f32 (each prepared,
+    diagonal at ``-inf``; overwritten), in one call: one block a group on
+    the card, each with its own state, outputs and counters.
+
+    Returns ``(merge_rows (B, n-1, 2) i32, heights (B, n-1) f32, steps
+    (B,) int32)``; a group whose matrix holds NaN stops short alone.
+    """
+    code = _chain_input(s, linkage, ndim=3)
+    if not dispatch.on_cuda(s):
+        return nn_chain_grouped_ref(s, linkage)
+    merges, heights, counters = _run_chains(s, code, *s.shape[:2])
+    return merges, heights, counters[:, 0]

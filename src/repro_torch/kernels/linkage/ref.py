@@ -18,6 +18,9 @@ a masked argmax.
 ``linkage_step_ref``: one host round trip per step, so it is the plain
 version the persistent kernel is held against, never the CUDA path.
 
+``nn_chain_grouped_ref`` runs ``nn_chain_ref`` on each matrix of a
+group axis, the plain version of the grouped kernel.
+
 ``nn_chain_cached_ref`` is the plain model of the kernel's bookkeeping:
 the same chain, with each live row's nearest neighbour kept in a cache
 instead of recomputed at every chain extension.  It is on no path; the
@@ -124,6 +127,22 @@ def nn_chain_ref(s: torch.Tensor, linkage: str = "average"
             chain.append(int(nn))
         it += 1
     return merges, heights, torch.tensor(t, dtype=torch.int32)
+
+
+def nn_chain_grouped_ref(s: torch.Tensor, linkage: str = "average"
+                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The group axis: ``nn_chain_ref`` on each ``s[b]`` of ``s (B, n,
+    n)`` (updated in place) -> ``(merge_rows (B, n-1, 2), heights (B,
+    n-1), steps (B,))``."""
+    b, n = s.shape[:2]
+    merges = torch.zeros((b, max(n - 1, 0), 2), dtype=torch.int32,
+                         device=s.device)
+    heights = torch.zeros((b, max(n - 1, 0)), dtype=torch.float32,
+                          device=s.device)
+    steps = torch.zeros((b,), dtype=torch.int32, device=s.device)
+    for i in range(b):
+        merges[i], heights[i], steps[i] = nn_chain_ref(s[i], linkage)
+    return merges, heights, steps
 
 
 def _extension_values(rows: torch.Tensor, linkage: str) -> torch.Tensor:

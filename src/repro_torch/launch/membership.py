@@ -36,8 +36,9 @@ scenario matrix is a (scenario, arrival pattern) pair:
 Accuracy counts honest arrivals from seed-known tasks only.  The loop
 also keeps the trainer's ``(T, C_max)`` stack layout through
 ``fed.partition.admit_layout``, which never changes its shape.
-``--seed-groups`` (hierarchical seeding) waits for ROADMAP Queue 1
-item 10 and ``--events`` (telemetry) for item 12.
+``--seed-groups G`` seeds the directory from the hierarchical two-level
+protocol over G edge groups.  ``--events`` (telemetry) waits for
+ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -86,6 +87,7 @@ def run_cell(args, scenario: str, arrivals: str, verbose: bool = True,
     from repro_torch.core import oneshot
     from repro_torch.core.cluster_engine import ClusterConfig
     from repro_torch.core.engine import ProtocolEngine
+    from repro_torch.core.hierarchy import HierarchyConfig
     from repro_torch.core.membership_engine import (MembershipConfig,
                                                     MembershipEngine)
     from repro_torch.core.similarity import SimilarityConfig
@@ -93,10 +95,6 @@ def run_cell(args, scenario: str, arrivals: str, verbose: bool = True,
     from repro_torch.fed import partition as fpart
     from repro_torch.kernels.dispatch import resolve_device
 
-    if args.seed_groups:
-        raise NotImplementedError(
-            "--seed-groups (hierarchical seeding) is not ported yet "
-            "(ROADMAP Queue 1 item 10)")
     device = resolve_device(args.device)
 
     def sync():
@@ -121,16 +119,21 @@ def run_cell(args, scenario: str, arrivals: str, verbose: bool = True,
     arrival_pool = seed_pool[args.seed_users:]
 
     scfg = SimilarityConfig(top_k=args.top_k)
+    hierarchy_cfg = (HierarchyConfig(n_groups=args.seed_groups)
+                     if args.seed_groups else None)
     t0 = time.perf_counter()
     res = oneshot.one_shot_clustering(
         torch.from_numpy(feats_all[seed_idx]), n_clusters=args.tasks,
-        cfg=scfg, cluster_cfg=ClusterConfig(backend="torch"), device=device)
+        cfg=scfg, cluster_cfg=ClusterConfig(backend="torch"), device=device,
+        hierarchy_cfg=hierarchy_cfg)
     seed_labels = _host(res.labels)
     seed_time = time.perf_counter() - t0
     seed_tasks = tids_all[seed_idx]
     seed_acc = clu.clustering_accuracy(seed_labels, seed_tasks)
     if verbose:
-        print(f"seed: {args.seed_users} users, one-shot protocol + HAC in "
+        how = (f"hierarchical ({args.seed_groups} groups)"
+               if args.seed_groups else "one-shot")
+        print(f"seed: {args.seed_users} users, {how} protocol + HAC in "
               f"{seed_time:.2f}s, clustering accuracy {seed_acc:.1%}")
 
     # cluster id -> oracle task id (majority vote over the seed), and the
@@ -305,8 +308,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed-users", type=int, default=64)
     ap.add_argument("--seed-groups", type=int, default=0,
-                    help="> 0 seeds through the hierarchical protocol "
-                         "(not ported yet)")
+                    help="> 0 clusters the seed via the hierarchical "
+                         "two-level protocol (this many edge groups) "
+                         "instead of the flat O(N^2) path")
     ap.add_argument("--samples", type=int, default=48)
     ap.add_argument("--dim", type=int, default=32)
     ap.add_argument("--tasks", type=int, default=4)

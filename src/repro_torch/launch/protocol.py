@@ -21,6 +21,11 @@ synthetic multi-task feature mixture.
   PYTHONPATH=src python -m repro_torch.launch.protocol --users 512 \\
       --raw-dim 256 --feature random_projection --dim 64 --chunk-rows 32
 
+  # hierarchical two-level protocol: 16384 users in 64 edge groups,
+  # O(G * (N/G)^2) relevance entries instead of O(N^2)
+  PYTHONPATH=src python -m repro_torch.launch.protocol --users 16384 \\
+      --groups 64 --group-clusters 8
+
 Prints the same ``clustering accuracy`` and ledger lines as
 ``repro.launch.protocol``.
 """
@@ -49,6 +54,14 @@ def main(argv: list[str] | None = None) -> float:
     ap.add_argument("--landmarks", type=int, default=0,
                     help="> 0 enables the Nystrom-sketched path: users are "
                          "scored against this many landmark signatures")
+    ap.add_argument("--groups", type=int, default=0,
+                    help="> 0 enables the hierarchical two-level "
+                         "protocol with this many edge groups")
+    ap.add_argument("--group-clusters", type=int, default=0,
+                    help="clusters cut per edge group (0 = --tasks)")
+    ap.add_argument("--group-batch", type=int, default=0,
+                    help="edge groups a batch of launches (0 = all at "
+                         "once)")
     ap.add_argument("--raw-dim", type=int, default=0,
                     help="> 0 enables the RAW-DATA entry point: users hand "
                          "raw m-dim shards and the SignatureEngine "
@@ -73,6 +86,7 @@ def main(argv: list[str] | None = None) -> float:
     from repro_torch.core import clustering as clu
     from repro_torch.core import oneshot
     from repro_torch.core.cluster_engine import ClusterConfig
+    from repro_torch.core.hierarchy import HierarchyConfig
     from repro_torch.core.signature_engine import SignatureConfig
     from repro_torch.core.similarity import SimilarityConfig
     from repro_torch.data.features import FeatureConfig, phi_out_dim
@@ -81,12 +95,18 @@ def main(argv: list[str] | None = None) -> float:
 
     device = resolve_device(args.device)
     raw_mode = args.raw_dim > 0
+    hier_mode = args.groups > 0
     mix_dim = args.raw_dim if raw_mode else args.dim
     feats, task_ids = make_task_feature_mixture(
         args.users, args.samples, mix_dim, args.tasks, seed=args.seed)
     cfg = SimilarityConfig(top_k=args.top_k, block_users=args.block_users,
                            landmarks=args.landmarks)
     ccfg = ClusterConfig(backend=args.cluster_backend, linkage=args.linkage)
+    hierarchy_cfg = None
+    if hier_mode:
+        hierarchy_cfg = HierarchyConfig(n_groups=args.groups,
+                                        group_clusters=args.group_clusters,
+                                        group_batch=args.group_batch)
     feature_cfg = signature_cfg = None
     shape = f"d={args.dim}"
     if raw_mode:
@@ -100,14 +120,15 @@ def main(argv: list[str] | None = None) -> float:
           f"{args.tasks} tasks | device={device_kind(device)} "
           f"cluster_backend={args.cluster_backend} "
           f"block_users={args.block_users} landmarks={args.landmarks} "
-          f"raw={raw_mode} "
+          f"groups={args.groups} raw={raw_mode} "
           f"chunk_rows={args.chunk_rows}")
 
     t0 = time.perf_counter()
     res = oneshot.one_shot_clustering(
         feats if raw_mode else torch.from_numpy(feats),
         n_clusters=args.tasks, cfg=cfg, cluster_cfg=ccfg,
-        feature_cfg=feature_cfg, signature_cfg=signature_cfg, device=device)
+        feature_cfg=feature_cfg, signature_cfg=signature_cfg, device=device,
+        hierarchy_cfg=hierarchy_cfg)
     labels = np.asarray(torch.as_tensor(res.labels).cpu())  # host sync
     dt = time.perf_counter() - t0
     acc = clu.clustering_accuracy(labels, task_ids)
@@ -115,9 +136,17 @@ def main(argv: list[str] | None = None) -> float:
     print(f"protocol + HAC: {dt:.2f}s | clustering accuracy {acc:.1%} | "
           f"cluster sizes {sizes.tolist()}")
     led = res.ledger.summary()
-    print(f"per-user upload {led['per_user_upload_bytes'] / 1024:.1f} KiB, "
+    scope = (f"(per-user view WITHIN its {args.users // args.groups}-user "
+             f"edge group) " if hier_mode else "")
+    print(f"per-user upload {scope}"
+          f"{led['per_user_upload_bytes'] / 1024:.1f} KiB, "
           f"download {led['per_user_download_bytes'] / 2**20:.2f} MiB, "
           f"GPS total {led['gps_total_bytes'] / 2**20:.2f} MiB")
+    if hier_mode:
+        entries = int(res.entry_counts.numel())
+        print(f"directory: {args.groups} groups -> {entries} entries -> "
+              f"{args.tasks} global clusters | global stage "
+              f"{entries}x{entries} signature-only relevance")
     return acc
 
 

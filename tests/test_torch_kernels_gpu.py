@@ -56,6 +56,12 @@ gap to the oracle the CPU tests hold within 2x the reference's own bf16
 kernel's.  The linear scan uses the plain version's separately rounded
 IEEE operations and equals it bit for bit on both load routes (TMA, and
 4-byte cp.async for misaligned views and D % 4 != 0), two runs alike.
+
+The group axis of eigproject and the NN-chain (the hierarchical
+protocol): each grouped call is held to G single calls (the norms within
+1e-6 of the largest and bit-equal; the chains' merges, heights and
+steps exact, a NaN stopping only its own group) and to the plain
+versions, and the batched cut to the per-group cut.
 """
 import numpy as np
 import pytest
@@ -74,6 +80,8 @@ from repro_torch.kernels.assign import (assign, assign_looped,
 from repro_torch.kernels.eigproject import (eig_plan, project_norms_all,
                                             project_norms_all_ref,
                                             project_norms_all_tf32,
+                                            project_norms_grouped,
+                                            project_norms_grouped_ref,
                                             split_w_ref)
 from repro_torch.kernels.eigproject.ops import kernel_plan, split_w
 from repro_torch.kernels.featurize_gram import (batched_featurize_gram,
@@ -88,10 +96,12 @@ from repro_torch.kernels.recurrent_scan import (linear_scan, linear_scan_plan,
                                                 linear_scan_ref, wkv_chunked,
                                                 wkv_chunked_ref, wkv_ref)
 from repro_torch.kernels.tf32 import matmul_1xtf32
-from repro_torch.core.cluster_engine import cut_device
+from repro_torch.core.cluster_engine import cut_device, cut_device_grouped
+from repro_torch.core.hierarchy import HierarchyConfig, hierarchical_one_shot
 from repro_torch.kernels.linkage import (LINKAGES, chain_plan, linkage_step,
                                          linkage_step_ref, nn_chain,
-                                         nn_chain_cached_ref, nn_chain_ref)
+                                         nn_chain_cached_ref, nn_chain_grouped,
+                                         nn_chain_grouped_ref, nn_chain_ref)
 from repro_torch.kernels.linkage import ops as lk_ops
 
 
@@ -164,11 +174,12 @@ class TestKernelsOnCard:
 
     @pytest.mark.parametrize("n_g,n_v,d,k", [
         (3, 4, 9, 2), (5, 33, 130, 5), (4, 8, 512, 8), (2, 17, 512, 8),
-        (3, 5, 784, 5), (1, 1, 1, 1)])
+        (3, 5, 784, 5), (1, 1, 1, 1), (4, 6, 16, 8), (3, 20, 28, 7)])
     def test_eigproject(self, cuda_device, n_g, n_v, d, k):
-        """Both load routes of G (TMA where 4 d % 16 == 0, 4-byte cp.async
-        at d = 9 and 130), NV k off the 128-column slab, NG != NV, G not
-        symmetric: 1e-5 of the largest norm and 1/8 of the 1xTF32
+        """Both load routes of G (TMA where 4 d % 16 == 0, also at d = 16
+        and 28, where the 32-deep, 128-row box is larger than G; 4-byte
+        cp.async at d = 9 and 130), NV k off the 128-column slab, NG !=
+        NV, G not symmetric: 1e-5 of the largest norm and 1/8 of the 1xTF32
         emulation's error, two runs bit-equal, one launch a call, and the
         split W^T equal to its plain layout bit for bit."""
         torch.manual_seed(d + k)
@@ -186,6 +197,36 @@ class TestKernelsOnCard:
         assert torch.equal(out, project_norms_all(g, v))
         assert torch.equal(split_w(v)[:, :, :d], split_w_ref(v)[:, :, :d])
         assert kernel_plan(d) == eig_plan(d)
+
+    @pytest.mark.parametrize("b,ng,d,k", [
+        (3, 20, 130, 5), (4, 33, 64, 8), (5, 16, 16, 8), (2, 200, 16, 8),
+        (2, 128, 512, 8), (1, 3, 9, 1)])
+    def test_eigproject_grouped(self, cuda_device, b, ng, d, k):
+        """The group axis against G single calls (column tiles that cross
+        a group's end at Ng k = 100, 264 and 1600; both load routes; the
+        hierarchical cells' shapes (200, 16, 8) and (128, 512, 8)): within
+        1e-6 of the largest norm, and bit-equal as run (each group's tiles
+        start at its first column, so each sum runs as in a single call);
+        against the plain version to 1e-5 and 1/8 of the 1xTF32
+        emulation's error; one launch a call."""
+        torch.manual_seed(b * 1000 + ng + d)
+        g = torch.randn((b, ng, d, d), device=cuda_device)
+        v = torch.randn((b, ng, d, k), device=cuda_device)
+        before = dispatch.LAUNCHES["eigproject"]
+        out = project_norms_grouped(g, v)
+        assert dispatch.LAUNCHES["eigproject"] == before + 1
+        single = torch.stack([project_norms_all(g[i], v[i])
+                              for i in range(b)])
+        close(out, single, 1e-6)
+        assert torch.equal(out, single)
+        ref = project_norms_grouped_ref(g, v)
+        close(out, ref)
+        err = float((out.double() - ref.double()).abs().max())
+        err_1x = max(float((project_norms_all_tf32(g[i], v[i], 1).double()
+                            - ref[i].double()).abs().max())
+                     for i in range(b))
+        assert 8 * err <= err_1x, (err, err_1x)
+        assert torch.equal(out, project_norms_grouped(g, v))
 
     @pytest.mark.parametrize("compute_dtype", ["fp32", "bf16"])
     def test_featurize_gram(self, cuda_device, compute_dtype):
@@ -413,6 +454,71 @@ class TestKernelsOnCard:
         assert int(got[2][0]) == int(want[2])
         assert got[2].tolist()[1:] == [model[3]["iterations"],
                                        model[3]["rescans"]]
+
+    @pytest.mark.parametrize("linkage", LINKAGES)
+    @pytest.mark.parametrize("b,n", [(6, 12), (8, 128), (5, 200),
+                                     (3, 1024)])
+    def test_nn_chain_grouped(self, cuda_device, linkage, b, n):
+        """The group axis, one block a group, against G single calls and
+        the plain loop: merges, heights and steps exact, one launch a
+        call; a NaN in group 1 stops that group alone."""
+        rng = np.random.default_rng(b * n)
+        r = rng.uniform(size=(b, n, n))
+        s = t((r + r.transpose(0, 2, 1)) / 2).to(cuda_device)
+        s.diagonal(dim1=1, dim2=2).fill_(float("-inf"))
+        s[1, 2, 7] = s[1, 7, 2] = float("nan")
+        before = dispatch.LAUNCHES["linkage"]
+        merges, heights, steps = nn_chain_grouped(s.clone(), linkage)
+        assert dispatch.LAUNCHES["linkage"] == before + 1
+        for i in range(b):
+            m1, h1, st1 = nn_chain(s[i].clone(), linkage)
+            assert torch.equal(merges[i], m1)
+            assert torch.equal(heights[i], h1)
+            assert int(steps[i]) == int(st1)
+        done = steps.cpu().numpy() == n - 1
+        assert not done[1] and np.delete(done, 1).all()
+        if n <= 200:
+            want = nn_chain_grouped_ref(s.cpu().clone(), linkage)
+            assert torch.equal(merges.cpu(), want[0])
+            assert torch.equal(heights.cpu(), want[1])
+            assert torch.equal(steps.cpu(), want[2])
+
+    def test_cut_device_grouped(self, cuda_device):
+        rng = np.random.default_rng(3)
+        r = rng.uniform(size=(7, 128, 128))
+        s = t((r + r.transpose(0, 2, 1)) / 2).to(cuda_device)
+        s.diagonal(dim1=1, dim2=2).fill_(float("-inf"))
+        merges, heights, _ = nn_chain_grouped(s)
+        for n_clusters in (1, 4, 128):
+            got = cut_device_grouped(merges, heights, 128, n_clusters)
+            for i in range(7):
+                assert torch.equal(got[i], cut_device(merges[i], heights[i],
+                                                      128, n_clusters))
+
+    @pytest.mark.parametrize("group_batch", [0, 3])
+    def test_hierarchical_matches_cpu(self, cuda_device, group_batch):
+        """The two-level protocol on the card against the CPU: the same
+        partition and group-local labels, entry spectra to 1e-4, and one
+        eigproject and one NN-chain launch a batch of groups, plus the
+        global stage's chain."""
+        feats, tasks = make_task_feature_mixture(256, 32, 64, 4, seed=2)
+        cfg = SimilarityConfig(top_k=8)
+        hcfg = HierarchyConfig(n_groups=8, group_batch=group_batch)
+        dispatch.reset_launches()
+        on_card = hierarchical_one_shot(feats, 4, cfg=cfg,
+                                        hierarchy_cfg=hcfg,
+                                        device=cuda_device)
+        batches = -(-8 // (group_batch or 8))
+        assert dispatch.LAUNCHES["eigproject"] == batches
+        assert dispatch.LAUNCHES["gram"] == batches
+        assert dispatch.LAUNCHES["linkage"] == batches + 1
+        on_cpu = hierarchical_one_shot(feats, 4, cfg=cfg,
+                                       hierarchy_cfg=hcfg, device="cpu")
+        assert clu.clustering_accuracy(host(on_card.labels), tasks) == 1.0
+        assert same_partition(on_card.labels, on_cpu.labels)
+        assert torch.equal(on_card.local_labels.cpu(), on_cpu.local_labels)
+        np.testing.assert_allclose(host(on_card.entry_lam),
+                                   host(on_cpu.entry_lam), rtol=1e-4)
 
     def test_nn_chain_2048(self, cuda_device):
         r = np.random.default_rng(6).uniform(size=(2048, 2048))

@@ -716,8 +716,11 @@ class TestLauncher:
         cells = launch.main(["--device", "cpu", "--quick"])
         assert all(a == 1.0 for a in cells[0]["accuracy_per_wave"])
         assert "honest accuracy 100.0%" in capsys.readouterr().out
-        with pytest.raises(NotImplementedError, match="item 10"):
-            launch.main(["--device", "cpu", "--quick", "--seed-groups", "2"])
+        cells = launch.main(["--device", "cpu", "--quick", "--seed-groups",
+                             "2"])
+        assert cells[0]["seed_accuracy"] == 1.0
+        assert all(a == 1.0 for a in cells[0]["accuracy_per_wave"])
+        assert "hierarchical (2 groups)" in capsys.readouterr().out
         with pytest.raises(NotImplementedError, match="item 12"):
             launch.main(["--device", "cpu", "--quick", "--events", "x"])
 
