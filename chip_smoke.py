@@ -10,8 +10,8 @@ holds each kernel against its plain PyTorch version on the card, and
 drives at full width every path of the port: the dense, blockwise, raw
 and landmark paths of ``one_shot_clustering`` (paper Algorithm 2),
 membership serving, LM serving and the two prefills, then the MT-HFL
-trainer (paper Algorithm 1), the IFCA baseline and the hierarchical
-two-level protocol:
+trainer (paper Algorithm 1), the IFCA baseline, the hierarchical
+two-level protocol and the sharded paths:
 
   [3]  dense, on pre-featurised users: N=1024 x n=256 x d=512, T=4,
        top_k=8;
@@ -67,7 +67,16 @@ two-level protocol:
        stage ms; a small input against the CPU plain path;
   [3k(b)] the same at 10^5 users x 8 samples, d = 16, 500 groups in
        batches of 100 (the reference's scale point, where the flat R
-       would be 37.3 GiB): ARI 1.0 against the tasks, wall and memory.
+       would be 37.3 GiB): ARI 1.0 against the tasks, wall and memory;
+  [3l] the sharded paths over a ``torch.distributed`` NCCL group of one
+       rank (NCCL takes one rank a card): the dense protocol on phase 3's
+       users and the raw ingest on phase 3c's, R within 1e-5 of those
+       phases' (and whether the bits are equal) and the same labels,
+       their launches; ``assign_sharded`` on phase 3e's directory and
+       last wave against ``assign`` in fp32 (labels equal, affinity
+       within 1e-5); ``train_mthfl(backend="shard_map")`` on 3i(b)'s
+       layout, losses within 1e-5 x max(1, |loss|) of the fused path and
+       the same accuracies.  A failure to start NCCL fails the run.
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -140,8 +149,10 @@ import contextlib
 import copy
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from unittest import mock
@@ -215,6 +226,9 @@ TRAIN_LOSS_TOL, IFCA_PARAM_TOL = 1e-4, 1e-4
 NUDGE, NUDGE_RUNS, SPREAD_FACTOR = 1e-7, 2, 4.0
 # IFCA cell (phase 3j): 64 users a task, 3 rounds, global 10-class labels.
 IFCA_USERS, IFCA_ROUNDS = 64, 3
+# Sharded paths (phase 3l): ranks of the NCCL group.  NCCL takes one rank
+# a card, so on one card the group has one rank.
+SHARD_WORLD = 1
 
 # Short spin kernels that open a profiler session (phase 3f): a session in
 # a process minutes old lost up to its first 9 kernel events on an H100.
@@ -767,7 +781,10 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import numpy as np
 
+    import torch.distributed as tdist
+
     from repro_torch.core import clustering as clu
+    from repro_torch.core import distributed as mdist
     from repro_torch.core import similarity as sim
     from repro_torch.core.cluster_engine import (ClusterConfig, ClusterEngine,
                                                  cut_device,
@@ -2380,7 +2397,7 @@ def main() -> int:
         loop_s=wall_j_loop, loop_param_gap=gap_j_loop,
         param_gap=gap_j, nudge_spread=spread_j, clustering_accuracy=acc_j,
         per_user_bytes_per_round=res_j.per_user_bytes_per_round)
-    del raw_users, res_j, res_j_cpu, res_j_loop
+    del res_j, res_j_cpu, res_j_loop
     phase_done("phase 3j")
 
     # -- Phase 3k: the hierarchical two-level protocol --------------------
@@ -2537,6 +2554,128 @@ def main() -> int:
     del x_s, res_s, grams_s
     torch.cuda.empty_cache()
     phase_done("phase 3k(b)")
+
+    # -- Phase 3l: the sharded paths over a torch.distributed group ------
+    # W = 1: one rank on this card over an NCCL group in this process (the
+    # collectives copy).  Phase 3l's launches stay out of the kernels line.
+    print(f"[3l] sharded paths over a {SHARD_WORLD}-rank NCCL group: the "
+          f"protocol on phase 3's and 3c's users, assign_sharded on phase "
+          f"3e's directory, the trainer on 3i(b)'s layout")
+    store_l = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    tdist.init_process_group("nccl", init_method=f"file://{store_l}/store",
+                             world_size=SHARD_WORLD, rank=0)
+    try:
+        mesh_l = mdist.make_user_mesh("data")
+        require(tdist.get_backend(mesh_l.get_group("data")) == "nccl",
+                "3l: the mesh's group is not an NCCL group")
+
+        def sharded_run(fn):
+            torch.cuda.synchronize()
+            dispatch.reset_launches()
+            t = time.perf_counter()
+            out = fn()
+            labels_run = out.labels.cpu().numpy()
+            return out, labels_run, time.perf_counter() - t, \
+                dict(dispatch.LAUNCHES)
+
+        # (a) the dense protocol on phase 3's users.
+        res_sh, labels_sh, wall_sh, launches_sh = sharded_run(
+            lambda: one_shot_clustering(
+                x, TASKS, cfg=dataclasses.replace(cfg, backend="shard_map"),
+                cluster_cfg=ccfg, device=dev, mesh=mesh_l))
+        gap_sh = max_err(torch, res_sh.similarity, big_r)
+        bits_sh = torch.equal(res_sh.similarity, big_r)
+        wall_3 = summary["paths"]["dense"]["wall_s"]
+        wall_3c = summary["paths"]["raw"]["wall_s"]
+        print(f"  (a) dense: wall {wall_sh:.3f} s (phase 3: {wall_3:.3f} s), "
+              f"R within {gap_sh:.3e} of phase 3's (tolerance 1e-5), the "
+              f"same bits {bits_sh}, labels equal to phase 3's "
+              f"{np.array_equal(labels_sh, dense_labels)}; launches "
+              + ", ".join(f"{k} {launches_sh[k]}"
+                          for k in ("gram", "eigproject", "linkage")))
+        require(gap_sh <= 1e-5, f"3l(a): R differs from phase 3's by "
+                f"{gap_sh:.3e}")
+        require(np.array_equal(labels_sh, dense_labels),
+                "3l(a): labels differ from phase 3's")
+        for name in ("gram", "eigproject", "linkage"):
+            require(launches_sh[name] > 0, f"3l(a) never launched {name}")
+
+        # (b) the raw ingest on phase 3c's users.
+        raw_kw_sh = dict(
+            raw_kw, cfg=dataclasses.replace(cfg_raw, backend="shard_map"),
+            signature_cfg=dataclasses.replace(sc_raw, backend="shard_map"),
+            mesh=mesh_l)
+        res_rsh, labels_rsh, wall_rsh, launches_rsh = sharded_run(
+            lambda: one_shot_clustering(raw_x, 2, **raw_kw_sh))
+        gap_rsh = max_err(torch, res_rsh.similarity, r_raw)
+        bits_rsh = torch.equal(res_rsh.similarity, r_raw)
+        print(f"  (b) raw: wall {wall_rsh:.3f} s (phase 3c: {wall_3c:.3f} s), "
+              f"R within {gap_rsh:.3e} of phase 3c's (tolerance 1e-5), the "
+              f"same bits {bits_rsh}, labels equal to phase 3c's "
+              f"{np.array_equal(labels_rsh, labels_r)}; launches "
+              + ", ".join(f"{k} {launches_rsh[k]}" for k in
+                          ("featurize_gram", "eigproject", "linkage")))
+        require(gap_rsh <= 1e-5, f"3l(b): R differs from phase 3c's by "
+                f"{gap_rsh:.3e}")
+        require(np.array_equal(labels_rsh, labels_r),
+                "3l(b): labels differ from phase 3c's")
+        for name in ("featurize_gram", "eigproject", "linkage"):
+            require(launches_rsh[name] > 0, f"3l(b) never launched {name}")
+        del res_sh, res_rsh
+
+        # (c) the directory sharded: phase 3e's last wave against its
+        # final directory, held to assign in fp32 (the sharded product
+        # runs in fp32, as the reference's einsum does).
+        fp32_engine = MembershipEngine(dataclasses.replace(
+            served.cfg, compute_dtype="fp32"), device=dev)
+        fp32_engine.state = served.state
+        one = fp32_engine.assign(lam_last, v_last)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        shd = served.assign_sharded(lam_last, v_last, mesh=mesh_l)
+        torch.cuda.synchronize()
+        wall_ash = time.perf_counter() - t0
+        fin = torch.isfinite(one.affinity)
+        gap_ash = max_err(torch, shd.affinity[fin], one.affinity[fin])
+        same_ash = (torch.equal(shd.labels, one.labels)
+                    and torch.equal(torch.isfinite(shd.affinity), fin))
+        print(f"  (c) assign_sharded: {tuple(v_last.shape)[0]} arrivals, "
+              f"T = {served.state.n_clusters}, {wall_ash * 1e3:.3f} ms; "
+              f"labels equal to assign's (fp32) {same_ash}, affinity within "
+              f"{gap_ash:.3e} (tolerance 1e-5)")
+        require(same_ash and gap_ash <= 1e-5,
+                "3l(c): assign_sharded disagrees with assign")
+
+        # (d) the trainer with its cluster axis sharded, against 3i(b)'s
+        # fused single-process run.
+        mesh_c = mdist.make_user_mesh("clusters")
+        hist_sh, wall_tsh = timed_train(
+            raw_users, labels_r, models_b, evals_b,
+            dataclasses.replace(check_cfg, backend="shard_map"),
+            cluster_classes=all_classes, fused=True, device=dev, mesh=mesh_c)
+        gap_tsh = float(np.max(loss_gaps(hist_sh, hist_fused)))
+        same_acc = np.array_equal(hist_sh.accuracy, hist_fused.accuracy)
+        print(f"  (d) train_mthfl shard_map, {n_raw} users, "
+              f"{TRAIN_CHECK_ROUNDS} rounds: wall {wall_tsh:.3f} s (fused "
+              f"{wall_fused:.3f} s), largest train-loss gap {gap_tsh:.3e} x "
+              f"max(1, |loss|) (tolerance 1e-5), accuracies equal "
+              f"{same_acc}")
+        require(hist_sh.fused and gap_tsh <= 1e-5 and same_acc,
+                "3l(d): the sharded trainer disagrees with the fused path")
+        summary["sharded"] = dict(
+            world=SHARD_WORLD,
+            dense=dict(wall_s=wall_sh, flat_wall_s=wall_3, r_gap=gap_sh,
+                       same_bits=bits_sh, launches=launches_sh),
+            raw=dict(wall_s=wall_rsh, flat_wall_s=wall_3c, r_gap=gap_rsh,
+                     same_bits=bits_rsh, launches=launches_rsh),
+            assign=dict(ms=wall_ash * 1e3, affinity_gap=gap_ash),
+            trainer=dict(wall_s=wall_tsh, fused_wall_s=wall_fused,
+                         loss_gap=gap_tsh, same_accuracy=same_acc))
+    finally:
+        tdist.destroy_process_group()
+        shutil.rmtree(store_l, ignore_errors=True)
+    del raw_users
+    phase_done("phase 3l")
 
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "

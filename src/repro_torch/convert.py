@@ -248,15 +248,15 @@ def _client_config(cfg) -> ClientConfig:
 
 def mthfl_config_from_reference(cfg) -> MTHFLConfig:
     """A reference ``MTHFLConfig`` (its ``ClientConfig`` included) -> the
-    port's.  ``jnp`` maps to ``torch``; ``shard_map`` stays, and the port's
-    trainer refuses it (ROADMAP Queue 1 item 13), so the reference's
-    ``mesh_axis`` has no counterpart yet."""
+    port's.  ``jnp`` maps to ``torch``; ``shard_map`` and ``mesh_axis``
+    carry over (the port shards the cluster axis over a
+    ``torch.distributed`` mesh axis of that name)."""
     return MTHFLConfig(
         global_rounds=cfg.global_rounds, local_rounds=cfg.local_rounds,
         local_steps=cfg.local_steps, batch_size=cfg.batch_size,
         client=_client_config(cfg.client), seed=cfg.seed,
         backend="shard_map" if cfg.backend == "shard_map" else "torch",
-        scan_rounds=cfg.scan_rounds,
+        mesh_axis=cfg.mesh_axis, scan_rounds=cfg.scan_rounds,
         dropout_frac=cfg.dropout_frac)
 
 

@@ -17,11 +17,15 @@ Mirrors the single-device paths of ``src/repro/core/engine.py``:
     is completed from that ``(N, m)`` block as ``C W^+ C^T``;
   * **raw** (``run_raw``): raw shards + a ``FeatureConfig`` go through
     the ``SignatureEngine`` (streamed featurize -> Gram, batched top-k
-    subspace iteration) before the relevance stage.
+    subspace iteration) before the relevance stage;
+  * **shard_map** (``backend="shard_map"``): users sharded over a
+    ``torch.distributed`` mesh axis, one process a device.  Every rank
+    passes the same full batch and moves only its own users to its
+    device; the paper's star-topology messages become two all_gathers
+    (signatures, then relevance rows), and every rank gets the replicated
+    ``R``.  The raw entry point shards the raw shards the same way.
 
-Everything stays on the engine's device.  The sharded backend is not
-ported yet and raises ``NotImplementedError`` naming ROADMAP Queue 1
-item 13.
+Everything stays on the engine's device.
 """
 from __future__ import annotations
 
@@ -29,14 +33,19 @@ import dataclasses
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import distributed as mdist
 from repro_torch.core import signature_engine as sig
 from repro_torch.core import similarity as sim
 from repro_torch.kernels.assign import ops as assign_ops
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.gram_project import ops as gp_ops
 
-__all__ = ["ProtocolEngine", "ProtocolResult", "landmark_indices"]
+__all__ = ["ProtocolEngine", "ProtocolResult", "landmark_indices",
+           "make_user_mesh"]
+
+make_user_mesh = mdist.make_user_mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,12 +63,27 @@ class ProtocolResult:
 
 
 def _dense_protocol(features: torch.Tensor, n_valid: torch.Tensor,
-                    top_k: int, eig_floor: float):
-    """``features (N, n, d)`` -> ``(r, R, lam, v)`` on their device."""
+                    top_k: int, eig_floor: float, group=None):
+    """``features (N, n, d)`` -> ``(r, R, lam, v)`` on their device.
+
+    Under the sharded backend ``features`` are this rank's users and
+    ``group`` the user axis's process group; the paper's messages are
+    then two all_gathers, and every rank gets the replicated result:
+
+      paper                               | here
+      ------------------------------------|------------------------------
+      user i broadcasts V_i to all users  | all_gather of (d, k) blocks
+      user i uploads row r(i, .) to GPS   | all_gather of relevance rows
+      GPS symmetrizes R, runs HAC         | every rank holds R
+    """
     grams = sim.batched_gram(features, n_valid)
     lam, v = sim.spectrum(grams, top_k)
-    r = sim.relevance_matrix(grams, lam, v, eig_floor)
-    return r, sim.symmetrize(r), lam, v
+    # Relevance rows of these users' Grams against every user's
+    # eigenvectors (Algorithm 2 lines 7-12), one eigproject launch.
+    v_all = mdist.all_gather_cat(v, group)
+    r = mdist.all_gather_cat(
+        sim.relevance_matrix(grams, lam, v_all, eig_floor), group)
+    return r, sim.symmetrize(r), mdist.all_gather_cat(lam, group), v_all
 
 
 def _tile_signatures(features: torch.Tensor, n_valid: torch.Tensor,
@@ -99,39 +123,60 @@ def _nystroem_complete(c: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _raw_finish(grams: torch.Tensor, top_k: int, eig_floor: float,
-                engine: "sig.SignatureEngine"):
+                engine: "sig.SignatureEngine", group=None):
     """Gram stack -> ``(r, R, resid, lam, v)``: top-k spectrum (subspace
     iteration by default), relevance and symmetrization.  The per-user
     eigen-residual is only computed when the engine will check it
-    (``resid`` is ``None`` otherwise)."""
+    (``resid`` is ``None`` otherwise).  Under the sharded backend the
+    Grams are this rank's users' and ``group`` gathers every output, as
+    in ``_dense_protocol``."""
     lam, v = engine.spectrum(grams, top_k)
-    resid = (sig.subspace_residual(grams, lam, v) if engine.cfg.check
-             else None)
-    r = sim.relevance_matrix(grams, lam, v, eig_floor)
-    return r, sim.symmetrize(r), resid, lam, v
+    resid = (mdist.all_gather_cat(sig.subspace_residual(grams, lam, v),
+                                  group) if engine.cfg.check else None)
+    v_all = mdist.all_gather_cat(v, group)
+    r = mdist.all_gather_cat(
+        sim.relevance_matrix(grams, lam, v_all, eig_floor), group)
+    return (r, sim.symmetrize(r), resid, mdist.all_gather_cat(lam, group),
+            v_all)
 
 
 class ProtocolEngine:
-    """One object that owns the whole one-shot protocol on one device.
+    """One object that owns the whole one-shot protocol.
 
-    ``device`` defaults to ``"cuda"`` and raises when no card is present;
-    pass ``device="cpu"`` to run the kernels' plain versions.
+    ``cfg.backend`` selects one device (``"torch"``) or users sharded
+    over ``mesh`` (``"shard_map"``, one process a device; the mesh
+    defaults to ``make_user_mesh(cfg.mesh_axis)`` over the default
+    process group).  ``device`` defaults to ``"cuda"`` (the rank's current
+    card) and raises when no card is present; pass ``device="cpu"`` to run
+    the kernels' plain versions, over a gloo mesh when sharded.
     """
 
     def __init__(self, cfg: sim.SimilarityConfig | None = None,
-                 device: str | torch.device = "cuda"):
+                 mesh=None, device: str | torch.device = "cuda"):
         cfg = cfg or sim.SimilarityConfig()
-        if cfg.backend == "shard_map":
-            raise NotImplementedError(
-                "the sharded protocol backend is not ported yet "
-                "(ROADMAP Queue 1 item 13)")
+        if cfg.block_users and cfg.backend == "shard_map":
+            raise ValueError("blockwise streaming (block_users > 0) is a "
+                             "single-host mode; the shard_map backend "
+                             "already tiles users over devices")
+        if cfg.landmarks and cfg.backend == "shard_map":
+            raise ValueError("the landmark-sketched path (landmarks > 0) "
+                             "is a single-host mode; shard_map computes "
+                             "exact relevance rows per device")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device)
 
     def _top_k(self, d: int) -> int:
         """Effective signature width: ``0`` means all d, and a Gram only
         has d eigenpairs however large ``cfg.top_k`` is."""
         return min(self.cfg.top_k or d, d)
+
+    def _group(self):
+        """The process group of the user axis, checked against the
+        engine's device."""
+        axis = self.cfg.mesh_axis
+        mesh = self.mesh or make_user_mesh(axis, self.device.type)
+        return mdist.axis_group(mesh, axis, self.device)
 
     def prepare(self, features, n_valid=None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -141,26 +186,53 @@ class ProtocolEngine:
     def signatures(self, features, n_valid=None
                    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """Per-user ``(lam (N, k), V (N, d, k), G (N, d, d))``: dense
-        only, since it materialises every Gram."""
-        if self.cfg.block_users:
+        single-device only, since it materialises every Gram."""
+        if self.cfg.backend == "shard_map" or self.cfg.block_users:
             raise ValueError(
                 "signatures() materializes the full (N, d, d) Gram stack "
-                "and is only available on the dense config (got "
+                "and is only available on the dense single-host config "
+                f"(got backend={self.cfg.backend!r}, "
                 f"block_users={self.cfg.block_users})")
         feats, nv = self.prepare(features, n_valid)
         grams = sim.batched_gram(feats, nv)
         lam, v = sim.spectrum(grams, self._top_k(feats.shape[-1]))
         return lam, v, grams
 
-    def _dispatch(self, feats: torch.Tensor, nv: torch.Tensor):
-        """Dense, blockwise or landmarks on prepared inputs ->
-        ``(r, R, lam, v)``."""
+    def _protocol(self, features, n_valid):
+        """Backend dispatch on any accepted input -> ``(r, R, lam, v, N,
+        d)``; shard_map before landmarks and blockwise, as the reference's
+        ``_dispatch``."""
+        if self.cfg.backend == "shard_map":
+            return self._run_shard_map(features, n_valid)
+        feats, nv = self.prepare(features, n_valid)
+        n_users, _, d = feats.shape
         if self.cfg.landmarks:
-            return self._run_landmarks(feats, nv)
-        if self.cfg.block_users:
-            return self._run_blockwise(feats, nv)
-        return _dense_protocol(feats, nv, self._top_k(feats.shape[-1]),
-                               self.cfg.eig_floor)
+            out = self._run_landmarks(feats, nv)
+        elif self.cfg.block_users:
+            out = self._run_blockwise(feats, nv)
+        else:
+            out = _dense_protocol(feats, nv, self._top_k(d),
+                                  self.cfg.eig_floor)
+        return (*out, n_users, d)
+
+    def _run_shard_map(self, features, n_valid):
+        """Every rank holds the same full batch; only this rank's users
+        go to its device.  Shapes are checked before the first
+        collective, so a bad input raises on every rank alike."""
+        group = self._group()
+        if not isinstance(features, (torch.Tensor, np.ndarray)):
+            features, n_valid = sim.pad_ragged(features, device="cpu")
+        if features.ndim != 3:
+            raise ValueError(f"user batch must be (N, n, m)-shaped "
+                             f"(users, rows, dim), got shape "
+                             f"{tuple(features.shape)}")
+        n_users, _, d = features.shape
+        rows = mdist.local_rows(n_users, group, self.cfg.mesh_axis)
+        feats, nv = self.prepare(
+            features[rows], None if n_valid is None else n_valid[rows])
+        out = _dense_protocol(feats, nv, self._top_k(d), self.cfg.eig_floor,
+                              group)
+        return (*out, n_users, d)
 
     def _run_blockwise(self, feats: torch.Tensor, nv: torch.Tensor):
         n_users, n, d = feats.shape
@@ -228,16 +300,14 @@ class ProtocolEngine:
     def relevance_and_similarity(self, features, n_valid=None
                                  ) -> tuple[torch.Tensor, torch.Tensor]:
         """Run the full protocol -> ``(r (N, N) directed, R symmetrized)``."""
-        return self._dispatch(*self.prepare(features, n_valid))[:2]
+        return self._protocol(features, n_valid)[:2]
 
     def similarity(self, features, n_valid=None) -> torch.Tensor:
         """``R (N, N)``: the matrix the GPS feeds to HAC."""
         return self.relevance_and_similarity(features, n_valid)[1]
 
     def run(self, features, n_valid=None) -> ProtocolResult:
-        feats, nv = self.prepare(features, n_valid)
-        r, big_r, lam, v = self._dispatch(feats, nv)
-        n_users, _, d = feats.shape
+        r, big_r, lam, v, n_users, d = self._protocol(features, n_valid)
         return ProtocolResult(relevance=r, similarity=big_r,
                               n_users=n_users, d=d, top_k=self._top_k(d),
                               lam=lam, v=v)
@@ -246,11 +316,26 @@ class ProtocolEngine:
 
     def _signature_engine(self, feature_cfg, signature_cfg, probe
                           ) -> "sig.SignatureEngine":
-        """Build the ingest engine on this engine's device."""
+        """Build the ingest engine on this engine's device, deriving its
+        backend from the protocol's when not given and rejecting
+        conflicting combinations."""
         if signature_cfg is None:
-            signature_cfg = sig.SignatureConfig(mesh_axis=self.cfg.mesh_axis)
-        if signature_cfg.backend == "shard_map":
-            raise NotImplementedError(sig.SHARD_MAP_TODO)
+            signature_cfg = sig.SignatureConfig(backend=self.cfg.backend,
+                                                mesh_axis=self.cfg.mesh_axis)
+        if ((signature_cfg.backend == "shard_map")
+                != (self.cfg.backend == "shard_map")):
+            raise ValueError(
+                f"signature backend {signature_cfg.backend!r} conflicts "
+                f"with protocol backend {self.cfg.backend!r}: shard_map "
+                "ingest runs inside the sharded protocol; use both or "
+                "neither")
+        if (signature_cfg.backend == "shard_map"
+                and signature_cfg.mesh_axis != self.cfg.mesh_axis):
+            raise ValueError(
+                f"signature mesh_axis {signature_cfg.mesh_axis!r} "
+                f"conflicts with protocol mesh_axis "
+                f"{self.cfg.mesh_axis!r}: the raw shard_map pipeline "
+                "shards users over ONE axis")
         return sig.SignatureEngine(feature_cfg, signature_cfg, probe=probe,
                                    device=self.device)
 
@@ -266,7 +351,8 @@ class ProtocolEngine:
         then runs on the resulting ``(N, d', d')`` Gram stack.  Pass the
         ``pca`` probe set via ``probe=``.  ``block_users`` belongs to the
         pre-featurised path (it never holds the Gram stack, which raw
-        relevance needs) and is rejected here.
+        relevance needs) and is rejected here.  Under ``shard_map`` every
+        rank passes the same full ``raw`` and featurises its own users.
         """
         if self.cfg.block_users:
             raise ValueError(
@@ -285,9 +371,22 @@ class ProtocolEngine:
         n_users, _, m = raw.shape
         d_out = engine.out_dim(m)
         top_k = self._top_k(d_out)
-        grams = engine.accumulate_grams(raw, nv, assume_full=full)
+        group, rows = None, slice(None)
+        if self.cfg.backend == "shard_map":
+            # This rank's users only; Phi's parameters are rank 0's fit,
+            # broadcast, so every rank featurises with the same bits.
+            group = self._group()
+            rows = mdist.local_rows(n_users, group, self.cfg.mesh_axis)
+            params = engine.params_for(m)
+            for name in sorted(params):
+                dist.broadcast(params[name],
+                               src=dist.get_global_rank(group, 0),
+                               group=group)
+        grams = engine.accumulate_grams(raw[rows], nv[rows],
+                                        assume_full=full)
         r, big_r, resid, lam, v = _raw_finish(grams, top_k,
-                                              self.cfg.eig_floor, engine)
+                                              self.cfg.eig_floor, engine,
+                                              group)
         if engine.cfg.check:
             engine.verify_convergence(resid)
         return ProtocolResult(relevance=r, similarity=big_r,

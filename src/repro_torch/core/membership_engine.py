@@ -31,10 +31,11 @@ Where the reference forms the ``(capacity, d, d)`` outer products of the
 whole table, the port forms each cluster's mean as one
 ``(d, m_t k) @ (m_t k, d)`` product over its members, and the robust
 statistics from one cluster's members at a time: the same sums in
-another fp32 order.  The sharded directory (``assign_sharded``, with
-``_verdict_from_affinity``, its verdict from gathered affinity rows)
-waits for ROADMAP Queue 1 item 13, and the telemetry spans and events of
-the reference for item 12.
+another fp32 order.  ``assign_sharded`` shards the directory's
+prototypes over the ranks of a ``torch.distributed`` mesh axis and
+gathers the wave's affinity columns (``_verdict_from_affinity`` gives the
+verdict from them).  The telemetry spans and events of the reference wait
+for ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
@@ -44,11 +45,13 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.core import distributed as mdist
 from repro_torch.core import similarity as sim
 from repro_torch.core.cluster_engine import ClusterConfig, ClusterEngine
 from repro_torch.core.hierarchy import greedy_match_labels
 from repro_torch.kernels import quant
 from repro_torch.kernels.assign import ops as assign_ops
+from repro_torch.kernels.assign.ref import verdict as _verdict
 from repro_torch.kernels.dispatch import resolve_device
 
 __all__ = ["MembershipConfig", "MembershipEngine", "MembershipState",
@@ -299,6 +302,16 @@ def _apply_floors(labels, best, margin, affinity_floor, margin_floor):
     return torch.where(out, UNASSIGNED, labels).to(torch.int32)
 
 
+def _verdict_from_affinity(aff, affinity_floor, margin_floor):
+    """``(B, T)`` affinity rows -> ``(labels, margin)`` with the floors
+    applied: the argmax and margin of the assign kernel and its plain
+    version, for callers that already hold the rows (the sharded
+    directory)."""
+    labels, margin = _verdict(aff)
+    return _apply_floors(labels, aff.max(dim=1).values, margin,
+                         affinity_floor, margin_floor), margin
+
+
 def _wave_outer_sums(v_wave, labels, n_clusters: int):
     """Per-cluster sums of a wave's ``V V^T`` (rows whose label is not a
     cluster, -1 among them, drop out) and the per-cluster counts."""
@@ -501,10 +514,35 @@ class MembershipEngine:
 
     def assign_sharded(self, lam, v, mesh=None,
                        axis: str = "data") -> AssignResult:
-        """The directory sharded over devices: not ported yet."""
-        raise NotImplementedError(
-            "assign_sharded (the directory sharded over devices) is not "
-            "ported yet (ROADMAP Queue 1 item 13)")
+        """``assign`` with the directory sharded over a mesh axis.
+
+        Every rank passes the same wave.  Each keeps ``T / W`` of the
+        dequantised prototypes, scores the wave against them with one
+        product (``-inf`` on empty prototypes), one all_gather assembles
+        the ``(B, T)`` affinity rows, and the verdict runs replicated.
+        The axis size must divide ``T``; ``mesh`` defaults to
+        ``make_user_mesh(axis)`` over the engine's device type.
+        """
+        st = self._require_state()
+        if not self.on_device:
+            raise ValueError("assign_sharded needs a device backend "
+                             "('torch'); numpy is host-only")
+        mesh = mesh or mdist.make_user_mesh(axis, self.device.type)
+        group = mdist.axis_group(mesh, axis, self.device)
+        rows = mdist.local_rows(st.n_clusters, group, axis,
+                                what="n_clusters")
+        v_w = self._wave(v)
+        # Dequantised before sharding: the product has no dequantising
+        # epilogue, and the scales would need a shard layout of their own.
+        protos = self._dequantize(st)[rows]                   # (T_l, d, d)
+        aff_l = torch.einsum("bdk,tde,bek->bt", v_w, protos,
+                             v_w) / v_w.shape[-1]             # (B, T_l)
+        aff_l = torch.where((st.counts[rows] > 0)[None, :], aff_l,
+                            -torch.inf)
+        aff = mdist.all_gather_cat(aff_l.T, group).T          # (B, T)
+        labels, margin = _verdict_from_affinity(
+            aff, self.cfg.affinity_floor, self.cfg.margin_floor)
+        return AssignResult(labels=labels, affinity=aff, margin=margin)
 
     # -- lifecycle ----------------------------------------------------------
 

@@ -164,7 +164,8 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
                         probe: np.ndarray | None = None,
                         signature_cfg=None,
                         device: str | torch.device = "cuda",
-                        hierarchy_cfg=None):
+                        hierarchy_cfg=None,
+                        mesh=None):
     """Run paper Algorithm 2 end to end on per-user feature matrices.
 
     ``features``: a list of ``(n_i, d)`` arrays, or a padded ``(N, n, d)``
@@ -174,6 +175,10 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
     chooses the decision layer and its linkage: by default the NN-chain
     on ``device`` (``backend="torch"``), which keeps ``R`` and the labels
     there; the host reference HAC only with ``backend="numpy"``.
+    ``mesh`` is only consulted by the sharded backend
+    (``cfg.backend="shard_map"``): every rank passes the same users, and
+    every rank runs the decision layer on the replicated ``R`` and gets
+    the same labels.
 
     Raw-data entry point: passing ``feature_cfg`` (a
     ``repro_torch.data.features.FeatureConfig``) declares ``features`` to
@@ -213,7 +218,7 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
             features, n_clusters, cfg=cfg, hierarchy_cfg=hierarchy_cfg,
             cluster_cfg=cluster_cfg, n_valid=n_valid,
             model_params=model_params, device=device)
-    engine = ProtocolEngine(cfg, device=device)
+    engine = ProtocolEngine(cfg, mesh=mesh, device=device)
     if feature_cfg is not None:
         res = engine.run_raw(features, feature_cfg, n_valid=n_valid,
                              probe=probe, signature_cfg=signature_cfg)

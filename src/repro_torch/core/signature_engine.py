@@ -16,8 +16,9 @@ PyTorch port of ``src/repro/core/signature_engine.py``:
     detects non-convergence.
 
 ``backend`` is ``"torch"`` (one device; the kernels follow the tensors'
-device) or ``"shard_map"``, which is kept so reference configs convert
-and is not ported yet.
+device) or ``"shard_map"``, which marks the config for the sharded raw
+protocol: ``ProtocolEngine.run_raw`` runs this engine's streaming step on
+each rank's own users.
 """
 from __future__ import annotations
 
@@ -40,16 +41,14 @@ SIGNATURE_BACKENDS = ("torch", "shard_map")
 EIG_METHODS = ("subspace", "eigh")
 _COMPUTE_DTYPES = ("fp32", "bf16")
 
-SHARD_MAP_TODO = ("the sharded raw protocol (signature backend "
-                  "'shard_map') is not ported yet (ROADMAP Queue 1 item 13)")
-
 
 @dataclasses.dataclass(frozen=True)
 class SignatureConfig:
     """How raw user shards become ``(lam, V, G)`` signatures.
 
     Attributes:
-      backend: ``"torch"``, or ``"shard_map"`` (not ported yet).
+      backend: ``"torch"``, or ``"shard_map"`` (the sharded raw protocol
+        of ``ProtocolEngine.run_raw``; ``grams``/``signatures`` refuse it).
       chunk_rows: ``0`` ingests each user's rows in one pass; ``> 0``
         streams row chunks of this size into the Gram accumulator.
       eig: ``"subspace"`` (batched top-k orthogonal iteration) or
@@ -254,8 +253,6 @@ class SignatureEngine:
                             f"{type(feature_cfg).__name__}")
         self.feature_cfg = feature_cfg
         self.cfg = cfg or SignatureConfig()
-        if self.cfg.backend == "shard_map":
-            raise NotImplementedError(SHARD_MAP_TODO)
         self.device = resolve_device(device)
         self._probe = probe
         self._params: dict[int, dict] = {}
@@ -335,6 +332,11 @@ class SignatureEngine:
 
     def grams(self, raw, n_valid=None) -> torch.Tensor:
         """Per-user Grams ``(N, d', d')`` straight from raw shards."""
+        if self.cfg.backend == "shard_map":
+            raise ValueError(
+                "the shard_map signature backend runs inside "
+                "ProtocolEngine.run_raw (it owns the mesh); use backend "
+                "'torch' for direct grams()")
         full = (n_valid is None
                 and isinstance(raw, (torch.Tensor, np.ndarray)))
         raw, nv = self.prepare(raw, n_valid)

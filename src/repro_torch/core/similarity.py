@@ -45,8 +45,8 @@ __all__ = [
 #: Largest ``(rows, N, k, k)`` block of ``signature_relevance``, in floats.
 _SIG_BLOCK_ELEMS = 1 << 24
 
-#: ``"torch"`` runs on one device; ``"shard_map"`` (users sharded over
-#: devices) is kept so reference configs convert, and is not ported yet.
+#: ``"torch"`` runs on one device; ``"shard_map"`` shards users over the
+#: ranks of a ``torch.distributed`` mesh axis (``core/distributed.py``).
 BACKENDS = ("torch", "shard_map")
 
 
@@ -58,7 +58,8 @@ class SimilarityConfig:
       top_k: eigenvectors each user shares; ``0`` means all d.
       eig_floor: eigenvalues below this are clamped before the min/max
         ratio (paper §III).
-      backend: ``"torch"`` or ``"shard_map"`` (not ported yet).
+      backend: ``"torch"`` or ``"shard_map"`` (users sharded over
+        ``mesh_axis``, one process a device).
       block_users: ``> 0`` selects blockwise streaming: users in tiles
         of this size, Grams only per tile, Gram-free cross-projection.
       landmarks: ``> 0`` selects the Nystrom-sketched path: every user is

@@ -24,6 +24,14 @@ the common-parameter predicate).  Two executions of the same semantics:
   stack): the host loop over clusters, one ``client.fused_lps_round`` a
   cluster and local round.
 
+``cfg.backend="shard_map"`` runs the fused path with the cluster axis
+sharded over the ranks of a ``torch.distributed`` mesh axis
+(``cfg.mesh_axis``), one process a device: the axis is padded to a
+multiple of the axis size with inert clusters (no members, GPS weight 0),
+each rank trains its slice, the GPS average is an ``all_reduce``, and the
+stack and losses are gathered every round, so every rank evaluates and
+returns the whole history.
+
 Both paths train on the same draws: the initial parameters, the batch
 indices and the participation masks come from one ``draws`` object.  By
 default that is ``KeyedDraws``: numpy streams derived from ``cfg.seed``
@@ -50,7 +58,9 @@ from typing import Any, Callable, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.core import distributed as mdist
 from repro_torch.fed import client as fed_client
 from repro_torch.fed import hierarchy as hier
 from repro_torch.fed import partition as part
@@ -82,7 +92,8 @@ class MTHFLConfig:
     batch_size: int = 32
     client: fed_client.ClientConfig = fed_client.ClientConfig()
     seed: int = 0
-    backend: str = "torch"         # torch; shard_map waits for item 13
+    backend: str = "torch"         # fused execution: torch | shard_map
+    mesh_axis: str = "clusters"    # mesh axis the cluster dim shards over
     scan_rounds: bool = False      # kept for the reference's API; the
     #                                rounds run one by one either way
     dropout_frac: float = 0.0      # per-global-round straggler/dropout rate
@@ -235,22 +246,27 @@ def _to_device(a, dev: torch.device, dtype=None) -> torch.Tensor:
     return a.to(device=dev, dtype=dtype)
 
 
-def _data_stack(setup: _ClusterSetup, c_max: int, dev: torch.device
+def _data_stack(setup: _ClusterSetup, c_max: int, dev: torch.device,
+                clusters: Sequence[int] | None = None
                 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Every member's data padded into ``x (T, C_max, n_max, ...)`` and
-    ``y (T, C_max, n_max)`` on ``dev``: one copy a user, once a run."""
-    n_clusters = len(setup.datasets)
+    """The members' data of ``clusters`` (default: all) padded into ``x
+    (T, C_max, n_max, ...)`` and ``y (T, C_max, n_max)`` on ``dev``: one
+    copy a user, once a run.  An index past the last cluster is an inert
+    padding cluster with no members."""
+    n_real = len(setup.datasets)
+    clusters = list(range(n_real) if clusters is None else clusters)
     pairs = [p for ds in setup.datasets for p in ds]
     n_max = max([int(len(y)) for _, y in pairs], default=1)
     sample_shape = tuple(pairs[0][0].shape[1:]) if pairs else (1,)
-    x = torch.zeros((n_clusters, c_max, n_max) + sample_shape,
+    x = torch.zeros((len(clusters), c_max, n_max) + sample_shape,
                     dtype=torch.float32, device=dev)
-    y = torch.zeros((n_clusters, c_max, n_max), dtype=torch.int64,
+    y = torch.zeros((len(clusters), c_max, n_max), dtype=torch.int64,
                     device=dev)
-    for t, ds in enumerate(setup.datasets):
-        for c, (xu, yu) in enumerate(ds):
-            x[t, c, :len(yu)] = _to_device(xu, dev, torch.float32)
-            y[t, c, :len(yu)] = _to_device(yu, dev, torch.int64)
+    for i, t in enumerate(clusters):
+        for c, (xu, yu) in enumerate(setup.datasets[t] if t < n_real
+                                     else []):
+            x[i, c, :len(yu)] = _to_device(xu, dev, torch.float32)
+            y[i, c, :len(yu)] = _to_device(yu, dev, torch.int64)
     return x, y
 
 
@@ -264,22 +280,36 @@ def _eval_sets(eval_sets, dev: torch.device) -> list[tuple]:
 # ---------------------------------------------------------------------------
 
 def _train_fused(models, evals, cfg: MTHFLConfig, setup: _ClusterSetup,
-                 lps_params: list[Params], draws, dev: torch.device
-                 ) -> tuple[np.ndarray, np.ndarray]:
+                 lps_params: list[Params], draws, dev: torch.device,
+                 group=None) -> tuple[np.ndarray, np.ndarray]:
     n_clusters = len(models)
     sizes = [len(m) for m in setup.members]
     c_max = max(1, max(sizes))
-    x, y = _data_stack(setup, c_max, dev)
-    n_per = torch.ones((n_clusters, c_max))          # pads: n=1, masked
-    mask = torch.zeros((n_clusters, c_max))
-    for t, ns in enumerate(setup.n_samples):
-        n_per[t, :len(ns)] = torch.tensor(ns, dtype=torch.float32)
-        mask[t, :len(ns)] = 1.0
+    own = list(range(n_clusters))
+    if group is not None:
+        # Pad the cluster axis to a multiple of the axis size; the
+        # padding clusters (the first cluster's parameters, as in the
+        # reference) have no members and no GPS weight.
+        n_pad = (-n_clusters) % dist.get_world_size(group)
+        rows = mdist.local_rows(n_clusters + n_pad, group, cfg.mesh_axis)
+        own = list(range(rows.start, rows.stop))
+    n_own = len(own)
+    size = [sizes[t] if t < n_clusters else 0 for t in own]
+    x, y = _data_stack(setup, c_max, dev, own)
+    n_per = torch.ones((n_own, c_max))               # pads: n=1, masked
+    mask = torch.zeros((n_own, c_max))
+    for i, t in enumerate(own):
+        if size[i]:
+            n_per[i, :size[i]] = torch.tensor(setup.n_samples[t],
+                                              dtype=torch.float32)
+            mask[i, :size[i]] = 1.0
     n_per, mask = n_per.to(dev), mask.to(dev)
-    p_stack = {k: torch.stack([p[k] for p in lps_params])
+    p_stack = {k: torch.stack([lps_params[t if t < n_clusters else 0][k]
+                               for t in own])
                for k in lps_params[0]}
-    cluster_w = torch.tensor(setup.cluster_weights, dtype=torch.float32,
-                             device=dev)
+    cluster_w = torch.tensor([setup.cluster_weights[t] if t < n_clusters
+                              else 0.0 for t in own],
+                             dtype=torch.float32, device=dev)
     optimizer = fed_client.make_optimizer(cfg.client)
     loss_fn, is_common = models[0].loss_fn, models[0].is_common
     steps, batch = cfg.local_steps, cfg.batch_size
@@ -287,33 +317,37 @@ def _train_fused(models, evals, cfg: MTHFLConfig, setup: _ClusterSetup,
     acc_hist = np.zeros((cfg.global_rounds, n_clusters))
     loss_hist = np.zeros((cfg.global_rounds, n_clusters))
     for g in range(cfg.global_rounds):
-        m_eff = torch.zeros((n_clusters, c_max))
-        for t in range(n_clusters):
-            if sizes[t]:
-                m_eff[t, :sizes[t]] = torch.tensor(
+        m_eff = torch.zeros((n_own, c_max))
+        for i, t in enumerate(own):
+            if size[i]:
+                m_eff[i, :size[i]] = torch.tensor(
                     draws.participation(t, g, cfg.dropout_frac))
         m_eff = mask * m_eff.to(dev)
         losses = []
         for l in range(cfg.local_rounds):
-            idx = torch.zeros((n_clusters, c_max, steps, batch),
+            idx = torch.zeros((n_own, c_max, steps, batch),
                               dtype=torch.int64)
-            for t in range(n_clusters):
-                if sizes[t]:
-                    idx[t, :sizes[t]] = torch.tensor(
+            for i, t in enumerate(own):
+                if size[i]:
+                    idx[i, :size[i]] = torch.tensor(
                         draws.batch_indices(t, g, l))
             p_stack, loss = fed_client.masked_lps_round(
                 p_stack, x, y, n_per, m_eff, idx.to(dev), loss_fn,
                 optimizer, cfg.client.clip_norm)
             losses.append(loss)
-        loss_hist[g] = torch.stack(losses).mean(dim=0).cpu().numpy()
-        p_stack = hier.gps_aggregate_stacked(p_stack, cluster_w, is_common)
+        loss_hist[g] = mdist.all_gather_cat(
+            torch.stack(losses).mean(dim=0), group)[:n_clusters].cpu().numpy()
+        p_stack = hier.gps_aggregate_stacked(p_stack, cluster_w, is_common,
+                                             axis=group)
+        full = {k: mdist.all_gather_cat(v, group)
+                for k, v in p_stack.items()}
         for t in range(n_clusters):
             if not sizes[t]:
                 acc_hist[g, t] = np.nan
                 continue
             ex, ey = evals[t]
             acc_hist[g, t] = models[t].accuracy(
-                {k: v[t] for k, v in p_stack.items()}, ex, ey)
+                {k: v[t] for k, v in full.items()}, ex, ey)
     return acc_hist, loss_hist
 
 
@@ -383,7 +417,8 @@ def train_mthfl(users: Sequence,
                 *,
                 fused: bool | str = "auto",
                 draws=None,
-                device: str | torch.device = "cuda") -> MTHFLHistory:
+                device: str | torch.device = "cuda",
+                mesh=None) -> MTHFLHistory:
     """Run Algorithm 1 on ``device`` (default ``"cuda"``, which raises
     without a card; ``"cpu"`` only when asked).
 
@@ -402,12 +437,12 @@ def train_mthfl(users: Sequence,
     ``draws``: the source of the initial parameters, batch indices and
     participation masks (``init_params(t)``, ``batch_indices(t, g, l)``,
     ``participation(t, g, rate)``); by default ``KeyedDraws``.
+    ``cfg.backend`` picks the fused execution: ``"torch"`` on one device,
+    ``"shard_map"`` with the cluster axis sharded over ``mesh``'s
+    ``cfg.mesh_axis`` (default: ``make_user_mesh`` over the default
+    process group); every rank passes the same arguments and gets the
+    same history.
     """
-    if cfg.backend == "shard_map":
-        raise ValueError(
-            "cfg.backend='shard_map' (the cluster axis sharded over "
-            "devices) is the multi-device trainer, ROADMAP Queue 1 item 13; "
-            "use backend='torch'")
     if cfg.backend not in TRAINER_BACKENDS:
         raise ValueError(f"cfg.backend must be one of {TRAINER_BACKENDS}, "
                          f"got {cfg.backend!r}")
@@ -439,9 +474,18 @@ def train_mthfl(users: Sequence,
     else:
         use_fused = False
 
-    run = _train_fused if use_fused else _train_reference
     with fed_client.fp32_scope():
-        acc, loss = run(models, _eval_sets(eval_sets, dev), cfg, setup,
-                        lps_params, draws, dev)
+        if not use_fused:
+            acc, loss = _train_reference(models, _eval_sets(eval_sets, dev),
+                                         cfg, setup, lps_params, draws, dev)
+        else:
+            group = None
+            if cfg.backend == "shard_map":
+                group = mdist.axis_group(
+                    mesh or mdist.make_user_mesh(cfg.mesh_axis, dev.type),
+                    cfg.mesh_axis, dev)
+            acc, loss = _train_fused(models, _eval_sets(eval_sets, dev),
+                                     cfg, setup, lps_params, draws, dev,
+                                     group)
     return MTHFLHistory(accuracy=acc, train_loss=loss, labels=labels,
                         fused=use_fused)

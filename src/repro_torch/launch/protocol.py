@@ -26,8 +26,13 @@ synthetic multi-task feature mixture.
   PYTHONPATH=src python -m repro_torch.launch.protocol --users 16384 \\
       --groups 64 --group-clusters 8
 
+  # users sharded over 4 ranks (one process a device: 4 cards over NCCL,
+  # or 4 CPU processes over gloo with --device cpu)
+  PYTHONPATH=src python -m repro_torch.launch.protocol --backend shard_map \\
+      --devices 4
+
 Prints the same ``clustering accuracy`` and ledger lines as
-``repro.launch.protocol``.
+``repro.launch.protocol`` (under shard_map, rank 0 prints them).
 """
 from __future__ import annotations
 
@@ -43,6 +48,14 @@ def main(argv: list[str] | None = None) -> float:
     ap.add_argument("--dim", type=int, default=64)
     ap.add_argument("--tasks", type=int, default=4)
     ap.add_argument("--top-k", type=int, default=8)
+    ap.add_argument("--backend", default="torch",
+                    choices=["torch", "shard_map"],
+                    help="one device, or users sharded over --devices "
+                         "ranks")
+    ap.add_argument("--devices", type=int, default=1,
+                    help="ranks of the shard_map backend, one process a "
+                         "device (cuda:0..N-1 over NCCL, or the CPU over "
+                         "gloo)")
     ap.add_argument("--cluster-backend", default="torch",
                     choices=["torch", "numpy"],
                     help="GPS decision layer: the NN-chain on --device "
@@ -79,7 +92,28 @@ def main(argv: list[str] | None = None) -> float:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
+    if args.devices < 1:
+        ap.error(f"--devices must be >= 1, got {args.devices}")
+    if args.backend != "shard_map" and args.devices != 1:
+        ap.error("--devices > 1 shards users: pass --backend shard_map")
+    if args.backend == "shard_map":
+        from repro_torch.core.distributed import run_ranks
 
+        return run_ranks(_shard_rank, args.devices, args.device,
+                         args=(args,))[0]
+    return _run(args)
+
+
+def _shard_rank(rank: int, world: int, args) -> float:
+    """One rank of the sharded run: the same protocol over the default
+    process group's mesh; rank 0 prints."""
+    from repro_torch.core.distributed import make_user_mesh
+
+    return _run(args, mesh=make_user_mesh("data"), rank=rank, world=world)
+
+
+def _run(args, mesh=None, rank: int = 0, world: int = 1) -> float:
+    """The protocol on this process's device; returns the accuracy."""
     import numpy as np
     import torch
 
@@ -99,7 +133,8 @@ def main(argv: list[str] | None = None) -> float:
     mix_dim = args.raw_dim if raw_mode else args.dim
     feats, task_ids = make_task_feature_mixture(
         args.users, args.samples, mix_dim, args.tasks, seed=args.seed)
-    cfg = SimilarityConfig(top_k=args.top_k, block_users=args.block_users,
+    cfg = SimilarityConfig(top_k=args.top_k, backend=args.backend,
+                           block_users=args.block_users,
                            landmarks=args.landmarks)
     ccfg = ClusterConfig(backend=args.cluster_backend, linkage=args.linkage)
     hierarchy_cfg = None
@@ -112,41 +147,44 @@ def main(argv: list[str] | None = None) -> float:
     if raw_mode:
         feature_cfg = FeatureConfig(kind=args.feature, d=args.dim,
                                     seed=args.seed)
-        signature_cfg = SignatureConfig(chunk_rows=args.chunk_rows,
+        signature_cfg = SignatureConfig(backend=args.backend,
+                                        chunk_rows=args.chunk_rows,
                                         eig=args.eig)
         shape = (f"m={mix_dim} -> d={phi_out_dim(feature_cfg, mix_dim)} "
                  f"({args.feature})")
-    print(f"{args.users} users x {args.samples} samples x {shape}, "
-          f"{args.tasks} tasks | device={device_kind(device)} "
-          f"cluster_backend={args.cluster_backend} "
-          f"block_users={args.block_users} landmarks={args.landmarks} "
-          f"groups={args.groups} raw={raw_mode} "
-          f"chunk_rows={args.chunk_rows}")
+    say = print if rank == 0 else (lambda *a, **k: None)
+    say(f"{args.users} users x {args.samples} samples x {shape}, "
+        f"{args.tasks} tasks | backend={args.backend} "
+        f"device={device_kind(device)} "
+        f"cluster_backend={args.cluster_backend} "
+        f"block_users={args.block_users} landmarks={args.landmarks} "
+        f"groups={args.groups} raw={raw_mode} "
+        f"chunk_rows={args.chunk_rows} devices={world}")
 
     t0 = time.perf_counter()
     res = oneshot.one_shot_clustering(
         feats if raw_mode else torch.from_numpy(feats),
         n_clusters=args.tasks, cfg=cfg, cluster_cfg=ccfg,
         feature_cfg=feature_cfg, signature_cfg=signature_cfg, device=device,
-        hierarchy_cfg=hierarchy_cfg)
+        hierarchy_cfg=hierarchy_cfg, mesh=mesh)
     labels = np.asarray(torch.as_tensor(res.labels).cpu())  # host sync
     dt = time.perf_counter() - t0
     acc = clu.clustering_accuracy(labels, task_ids)
     sizes = np.bincount(labels, minlength=args.tasks)
-    print(f"protocol + HAC: {dt:.2f}s | clustering accuracy {acc:.1%} | "
-          f"cluster sizes {sizes.tolist()}")
+    say(f"protocol + HAC: {dt:.2f}s | clustering accuracy {acc:.1%} | "
+        f"cluster sizes {sizes.tolist()}")
     led = res.ledger.summary()
     scope = (f"(per-user view WITHIN its {args.users // args.groups}-user "
              f"edge group) " if hier_mode else "")
-    print(f"per-user upload {scope}"
-          f"{led['per_user_upload_bytes'] / 1024:.1f} KiB, "
-          f"download {led['per_user_download_bytes'] / 2**20:.2f} MiB, "
-          f"GPS total {led['gps_total_bytes'] / 2**20:.2f} MiB")
+    say(f"per-user upload {scope}"
+        f"{led['per_user_upload_bytes'] / 1024:.1f} KiB, "
+        f"download {led['per_user_download_bytes'] / 2**20:.2f} MiB, "
+        f"GPS total {led['gps_total_bytes'] / 2**20:.2f} MiB")
     if hier_mode:
         entries = int(res.entry_counts.numel())
-        print(f"directory: {args.groups} groups -> {entries} entries -> "
-              f"{args.tasks} global clusters | global stage "
-              f"{entries}x{entries} signature-only relevance")
+        say(f"directory: {args.groups} groups -> {entries} entries -> "
+            f"{args.tasks} global clusters | global stage "
+            f"{entries}x{entries} signature-only relevance")
     return acc
 
 

@@ -14,10 +14,11 @@ from repro.fed import partition as ref_part
 from repro.fed import trainer as ref_trainer
 from repro.models import cnn as ref_cnn
 from repro.models import mlp as ref_mlp
+from _torch_dist_support import port_mlp_models  # noqa: F401
 from repro_torch import convert
 from repro_torch.fed import partition as fpart
 from repro_torch.fed import trainer as ftrainer
-from repro_torch.models import cnn, mlp
+from repro_torch.models import cnn
 
 
 class ReferenceDraws:
@@ -55,15 +56,6 @@ def ref_mlp_models(mcfg, n):
         loss_fn=ref_mlp.loss_fn(mcfg),
         accuracy=lambda p, x, y, c=mcfg: ref_mlp.accuracy(c, p, x, y),
         is_common=ref_part.prefix_predicate(ref_mlp.COMMON_PREFIXES))
-        for _ in range(n)]
-
-
-def port_mlp_models(mcfg, n):
-    return [ftrainer.TaskModel(
-        init=lambda g, c=mcfg: mlp.init(c, g),
-        loss_fn=mlp.loss_fn(mcfg),
-        accuracy=lambda p, x, y, c=mcfg: mlp.accuracy(c, p, x, y),
-        is_common=fpart.prefix_predicate(mlp.COMMON_PREFIXES))
         for _ in range(n)]
 
 

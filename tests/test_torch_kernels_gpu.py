@@ -755,6 +755,68 @@ class TestKernelsOnCard:
                                    host(engines[1].state.protos), atol=1e-5)
 
 
+    def test_sharded_protocol_one_rank_over_nccl(self, cuda_device):
+        """The sharded protocol on a one-rank NCCL group: R within 1e-5 of
+        the dense path's, the same labels, and one launch each of gram,
+        eigproject and the NN-chain."""
+        import dataclasses
+
+        from _torch_dist_support import one_rank_world
+
+        feats, tasks = make_task_feature_mixture(64, 32, 64, 4, seed=6)
+        cfg = SimilarityConfig(top_k=8)
+        ccfg = ClusterConfig(backend="torch")
+        dense = one_shot_clustering(feats, 4, cfg=cfg, cluster_cfg=ccfg,
+                                    device=cuda_device)
+        with one_rank_world("data", "cuda") as mesh:
+            dispatch.reset_launches()
+            sharded = one_shot_clustering(
+                feats, 4, cfg=dataclasses.replace(cfg, backend="shard_map"),
+                cluster_cfg=ccfg, device=cuda_device, mesh=mesh)
+            torch.cuda.synchronize()
+            launches = dict(dispatch.LAUNCHES)
+        close(sharded.similarity, dense.similarity)
+        assert sharded.similarity.device.type == "cuda"
+        for name in ("gram", "eigproject", "linkage"):
+            assert launches[name] == 1, launches
+        assert torch.equal(sharded.labels, dense.labels)
+        assert clu.clustering_accuracy(host(sharded.labels), tasks) == 1.0
+
+
+    def test_sharded_trainer_one_rank_over_nccl(self, cuda_device):
+        """train_mthfl with its cluster axis sharded over a one-rank NCCL
+        group: the fused path's losses and accuracies bit for bit (the
+        gathers copy, the all_reduce adds nothing)."""
+        import dataclasses
+
+        from _torch_dist_support import one_rank_world, port_mlp_models
+        from repro_torch.data.partition import UserData
+        from repro_torch.fed.trainer import MTHFLConfig, train_mthfl
+        from repro_torch.models import mlp
+
+        rng = np.random.default_rng(0)
+        users = [UserData(user_id=i, task_id=i % 3,
+                          x=rng.standard_normal((n, 12)).astype(np.float32),
+                          y=rng.integers(0, 4, n).astype(np.int32),
+                          task_classes=(0, 1, 2, 3))
+                 for i, n in enumerate([40, 25, 33, 30, 8])]
+        labels = np.array([0, 1, 2, 0, 2])
+        evals = [(u.x, u.y) for u in users[:3]]
+        models = port_mlp_models(mlp.PaperMLPConfig(m=12, hidden=8,
+                                                    n_classes=4), 3)
+        cfg = MTHFLConfig(global_rounds=2, local_rounds=2, local_steps=3,
+                          batch_size=8)
+        fused = train_mthfl(users, labels, models, evals, cfg, fused=True,
+                            device=cuda_device)
+        with one_rank_world("clusters", "cuda") as mesh:
+            sharded = train_mthfl(
+                users, labels, models, evals,
+                dataclasses.replace(cfg, backend="shard_map"), fused=True,
+                device=cuda_device, mesh=mesh)
+        assert np.array_equal(sharded.train_loss, fused.train_loss)
+        assert np.array_equal(sharded.accuracy, fused.accuracy)
+
+
 @pytest.mark.gpu
 class TestLMKernelsOnCard:
     """flash_attention, wkv_chunked and linear_scan against their plain

@@ -250,9 +250,27 @@ class TestConstruction:
             np.testing.assert_array_equal(host(margin), np.asarray(r_margin))
 
     def test_assign_sharded_not_ported(self, seed_result):
+        """The directory sharded over a one-rank mesh: the verdict of the
+        single-device path in fp32 (the reference's W = 1 case; the
+        sharded product runs in fp32, as the reference's einsum does)."""
+        from _torch_dist_support import one_rank_world
+
         lam, v, _, _ = seed_result
-        with pytest.raises(NotImplementedError, match="item 13"):
-            make_engine(seed_result, "torch").assign_sharded(lam, v)
+        eng = make_engine(seed_result, "torch", compute_dtype="fp32")
+        single = eng.assign(lam, v)
+        with one_rank_world() as mesh:
+            sharded = eng.assign_sharded(lam, v, mesh=mesh)
+        np.testing.assert_array_equal(host(sharded.labels),
+                                      host(single.labels))
+        np.testing.assert_allclose(host(sharded.affinity),
+                                   host(single.affinity), atol=1e-5)
+        np.testing.assert_allclose(host(sharded.margin),
+                                   host(single.margin), atol=1e-5)
+
+    def test_assign_sharded_requires_device_backend(self, seed_result):
+        lam, v, _, _ = seed_result
+        with pytest.raises(ValueError, match="device backend"):
+            make_engine(seed_result, "numpy").assign_sharded(lam, v)
 
 
 class TestUnassignedBucket:

@@ -302,7 +302,7 @@ class TestRawEntry:
         with pytest.raises(ValueError, match="block_users"):
             ProtocolEngine(sim.SimilarityConfig(block_users=8),
                            device=CPU).run_raw(raw, fc)
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(ValueError, match="conflicts"):
             ProtocolEngine(device=CPU).run_raw(
                 raw, fc, signature_cfg=sig.SignatureConfig(
                     backend="shard_map"))

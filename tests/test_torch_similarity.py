@@ -165,18 +165,30 @@ class TestConfig:
                                     dict(backend="shard_map", block_users=4),
                                     dict(backend="shard_map")])
     def test_unported_options_raise(self, kw):
+        """The sharded backend takes neither single-host mode (the
+        reference's two errors); alone, at W = 1, it gives the dense R."""
+        from _torch_dist_support import one_rank_world
+
         kw = {"top_k": 4, **kw}
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            port_engine(**kw)
+        if "landmarks" in kw or "block_users" in kw:
+            with pytest.raises(ValueError, match="single-host mode"):
+                port_engine(**kw)
+            return
+        feats, _ = mixture(16, 40, 32, 4, 1)
+        with one_rank_world() as mesh:
+            r = ProtocolEngine(sim.SimilarityConfig(**kw), mesh=mesh,
+                               device="cpu").similarity(t(feats))
+        np.testing.assert_array_equal(host(r),
+                                      host(port_engine(4).similarity(feats)))
 
     def test_run_raw_raises(self):
-        """The raw entry point is ported; its sharded ingest is not, and
-        it still needs a FeatureConfig."""
+        """The raw entry point's ingest backend must agree with the
+        protocol's (the reference's check), and it needs a FeatureConfig."""
         from repro_torch.core.signature_engine import SignatureConfig
         from repro_torch.data.features import FeatureConfig
 
         raw = np.zeros((2, 3, 4), np.float32)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="conflicts"):
             port_engine(4).run_raw(raw, FeatureConfig(kind="identity"),
                                    signature_cfg=SignatureConfig(
                                        backend="shard_map"))

@@ -244,14 +244,31 @@ class TestApi:
 
     @pytest.mark.parametrize("backend,match", [
         ("cuda", "backend must be one of"), ("jnp", "backend must be one of"),
-        ("shard_map", "ROADMAP Queue 1 item 13")])
+        ("shard_map", None)])
     def test_backends(self, backend, match):
+        """Unknown backends raise; ``shard_map`` over a one-rank mesh
+        trains the fused path's history."""
+        from _torch_dist_support import one_rank_world
+
         users, labels = make_users(LAYOUTS["T1"])
-        with pytest.raises(ValueError, match=match):
-            ftrainer.train_mthfl(
+
+        def train(backend, mesh=None):
+            return ftrainer.train_mthfl(
                 users, labels, port_mlp_models(PMCFG, 1),
                 port_evals(make_evals(1)),
-                dataclasses.replace(CFG, backend=backend), device=CPU)
+                dataclasses.replace(CFG, backend=backend), device=CPU,
+                mesh=mesh)
+        if match is not None:
+            with pytest.raises(ValueError, match=match):
+                train(backend)
+            return
+        with one_rank_world("clusters") as mesh:
+            sharded = train(backend, mesh)
+        plain = train("torch")
+        assert sharded.fused and plain.fused
+        np.testing.assert_allclose(sharded.train_loss, plain.train_loss,
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(sharded.accuracy, plain.accuracy)
 
     @pytest.mark.parametrize("bad", [1.0, -0.1])
     def test_dropout_validation(self, bad):
@@ -278,9 +295,13 @@ class TestApi:
 
     def test_config_conversion(self):
         ref = dataclasses.replace(BASE_CFG, backend="shard_map",
-                                  dropout_frac=0.2, scan_rounds=True)
+                                  dropout_frac=0.2, scan_rounds=True,
+                                  mesh_axis="lps")
         port = convert.mthfl_config_from_reference(ref)
         assert port.backend == "shard_map" and port.dropout_frac == 0.2
+        assert port.mesh_axis == "lps"
+        assert convert.mthfl_config_from_reference(BASE_CFG).mesh_axis == \
+            BASE_CFG.mesh_axis == "clusters"
         assert port.client.lr == ref.client.lr and port.scan_rounds
         assert convert.mthfl_config_from_reference(BASE_CFG).backend == \
             "torch"
