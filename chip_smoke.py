@@ -9,7 +9,8 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card, and
 drives at full width every path of the port: the dense, blockwise, raw
 and landmark paths of ``one_shot_clustering`` (paper Algorithm 2),
-membership serving, LM serving and the two prefills, then the MT-HFL
+membership serving, LM serving and the prefills of every model kind
+(dense, hybrid, MoE, early-fusion VLM, encoder-decoder), then the MT-HFL
 trainer (paper Algorithm 1), the IFCA baseline, the hierarchical
 two-level protocol and the sharded paths:
 
@@ -38,6 +39,21 @@ two-level protocol and the sharded paths:
   [3h] hybrid prefill: RecurrentGemma-9B at full width and depth (bf16,
        the flash kernel with its 2048 window and the linear scan), on
        1 x 4096 tokens;
+  [3m] MoE prefill: Phi-3.5-MoE at full width (16 experts, top-2), 4 of
+       its 32 layers (bf16, the flash kernel), 2 x 4096 tokens; the
+       dropped share of picks and, layer by layer, the picks that differ
+       from the fp32 path; then 2 layers in fp32 with drop-free capacity,
+       16 decode steps against the teacher-forced forward (the reference's
+       bar, atol 5e-3 + rtol 1e-3);
+  [3n] early-fusion VLM prefill: Llama-4-Scout at full width (16 experts,
+       top-1, patch projection), 2 of its 48 layers, 1 x 4096 tokens of
+       which 1024 random positions take patch embeddings;
+  [3o] encoder-decoder: SeamlessM4T-v2 whole (24 + 24 layers), forward on
+       frames (2, 1024, 1024) and tokens (2, 512), the flash kernel on the
+       encoder's, the decoder's and the cross attention (512 x 1024,
+       bidirectional); then in fp32 ``encode``,
+       ``decode_state_from_memory`` and 16 decode steps against the
+       teacher-forced forward, at the reference's bar;
   [3i] MT-HFL: ``train_mthfl`` on phase 3c's users and on-card labels,
        the paper CNN at CONFIG width with the Fig. 2 settings: (a) 32
        users a task over 2 rounds on the card and on the CPU, per-round
@@ -83,11 +99,18 @@ and read just after.  Phase [4] times each kernel beside its plain
 version, one library call and its bound.  Its device times are CUDA
 events around calls queued behind a spin kernel (``device_ms``), and it
 requires every device time at or above its bound and every rate at most
-1.05x the memory's peak.  bf16 attention and bf16
+1.05x the memory's peak.  The prefills (3g, 3h, 3m, 3n, 3o) hold the
+kernel path's last-position logits to at most twice the bf16 plain
+path's distance from an fp32 plain forward.  bf16 attention and bf16
 assignment run on the tensor cores (``flash_attention_tc.cu``,
 ``assign_wave_tc.cu``); phases [2] and [4] also hold the flash kernel
-with its output left in fp32 to 1e-5 of the fp32 function, and phase
-[1] prints every kernel's registers and spills.  ``featurize_gram`` and
+with its output left in fp32 to 1e-5 of the fp32 function, at every head
+dim the models use (16, 32, 64, 128, 256; phase [4] times hd 32 at the
+REDUCED granite shape, both kernels, and holds and times the kernel at
+phase 3o's three hd-64 shapes: the encoder's and the cross attention's,
+bidirectional, the latter 512 x 1024, and the decoder's causal self
+attention), and phase [1] prints every
+kernel's registers and spills.  ``featurize_gram`` and
 ``gram_project`` run their fp32 products as 3xTF32 on the tensor cores:
 phases [2] and [4] hold each to 1e-5 x max|plain| and to at most 1/8 of
 the error of the plain 1xTF32 emulation (``kernels/tf32.py``) on the
@@ -116,7 +139,9 @@ the chunk form on the tensor cores: phase [2] holds fp32 compute to
 bf16 compute to 2^-8 x max of the plain chunk form with the same bf16
 roundings (its gap to the fp32 oracle at most twice the plain chunk
 form's), S from 1 to 200 and strong decays; phase [4] times both
-compute dtypes at the serving chunk, with device times.  ``nn_chain``
+compute dtypes at the serving chunk, with device times, and holds bf16
+compute's gap to the fp32 oracle to 2^-8 x max and to twice the plain
+chunk form's.  ``nn_chain``
 caches every live row's nearest neighbour: phase [2] holds its merges,
 heights and step count to the plain loop bit for bit and its counters
 (iterations, rows rescanned) to the plain model of the cache on random,
@@ -200,6 +225,21 @@ DEFAULT_TASK = dict(vocab=512)
 DEFAULT_SIG = dict(vocab=512)
 # Prefill cells (phases 3g, 3h): batch x sequence.
 DENSE_PREFILL, HYBRID_PREFILL = (2, 4096), (1, 4096)
+# The rest of the zoo (phases 3m-3o) at published widths: batch x sequence
+# and the depth one 80 GB card holds (phi3_5_moe: 4 of 32 layers, 10.9 GB
+# of bf16 weights; llama4_scout: 2 of 48, 12.5 GB); seamless_m4t_v2 whole,
+# batch x frames and batch x tokens.
+MOE_PREFILL, MOE_LAYERS = (2, 4096), 4
+FUSION_PREFILL, FUSION_LAYERS = (1, 4096), 2
+ENCDEC_FRAMES, ENCDEC_TOKENS = (2, 1024), (2, 512)
+# Decode against the teacher-forced forward (3m at 2 layers, 3o whole,
+# fp32), at the reference's bar for that check (tests/test_arch_smoke.py).
+ZOO_DECODE_STEPS, ZOO_DECODE_LAYERS = 16, 2
+DECODE_ATOL, DECODE_RTOL = 5e-3, 1e-3
+# flash at head dim 32 (the REDUCED granite_8b, deepseek_67b,
+# chameleon_34b and llama4_scout configs): timed at the dense prefill's
+# batch and sequence with the REDUCED granite's 8 heads.
+HD32_HEADS = 8
 # MT-HFL cell (phase 3i): the paper's Fig. 2 settings
 # (benchmarks/bench_fig2_cifar.py): 5 global rounds of 1 local round of 12
 # momentum steps, batch 32, lr 0.01; evaluation sets of 50 samples a class
@@ -834,7 +874,8 @@ def main() -> int:
                                                     MembershipEngine)
     from repro_torch.configs.base import get_arch
     from repro_torch.data.tokens import TokenTaskSpec, sample_tokens
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (HEAD_DIMS,
+                                                     flash_attention,
                                                      flash_ref)
     from repro_torch.kernels.flash_attention.ops import (
         _flash_attention_fp32_out)
@@ -850,7 +891,9 @@ def main() -> int:
                                                 greedy_decode,
                                                 route_requests,
                                                 token_signature)
+    from repro_torch.models import encdec as lm_encdec
     from repro_torch.models import layers as lm_layers
+    from repro_torch.models import moe as lm_moe
     from repro_torch.models import transformer as lm_T
     from repro_torch.models.registry import get_model
     from repro_torch.configs import paper_cnn
@@ -867,9 +910,16 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cpu").manual_seed(SEED)
+    # The inputs of the checks that came with the rest of the LM zoo
+    # (flash at hd 32, phases 3m-3o) come from a generator of their own,
+    # so that every other check draws the inputs it drew before them.
+    zoo_gen = torch.Generator(device="cpu").manual_seed(SEED)
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen).to(dev)
+
+    def zoo_randn(*shape):
+        return torch.randn(*shape, generator=zoo_gen).to(dev)
 
     t_start = time.perf_counter()
     t_phase = [t_start]
@@ -1277,11 +1327,12 @@ def main() -> int:
                "wkv fp32": 0.0, "wkv bf16": 0.0, "wkv state": 0.0,
                "wkv bf16 compute": 0.0}
     n_checks = 0
-    for hd in (16, 64, 128, 256):
+    for hd in HEAD_DIMS:
+        draw = zoo_randn if hd == 32 else randn
         for b_, s_, skv_, h_ in [(2, 100, 100, 3), (1, 257, 257, 2),
                                  (1, 70, 130, 2)]:
-            qkv32 = (randn(b_, s_, h_, hd), randn(b_, skv_, h_, hd),
-                     randn(b_, skv_, h_, hd))
+            qkv32 = (draw(b_, s_, h_, hd), draw(b_, skv_, h_, hd),
+                     draw(b_, skv_, h_, hd))
             for dt, key in ((torch.float32, "flash fp32"),
                             (torch.bfloat16, "flash bf16")):
                 q_, k_, v_ = (t_.to(dt) for t_ in qkv32)
@@ -1326,7 +1377,8 @@ def main() -> int:
     lm_errs["flash fp32"] = max(lm_errs["flash fp32"], flash_check(
         "flash misaligned view", out, flash_ref(q_, q_, q_, True, 0)))
     n_checks += 1
-    print(f"  flash_attention: {n_checks} cases (hd 16/64/128/256, S and "
+    print(f"  flash_attention: {n_checks} cases (hd "
+          f"{'/'.join(map(str, HEAD_DIMS))}, S and "
           f"Skv off the tiles, causal / window 48 and 130 / bidirectional, "
           f"a misaligned view): fp32 max|kernel - plain| / max|plain| "
           f"{lm_errs['flash fp32']:.3e} (tolerance 1e-5); bf16 element by "
@@ -1976,18 +2028,90 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_done("phase 3f")
 
-    # -- Phases 3g and 3h: prefill forwards at full width -----------------
-    def prefill_cell(path, arch, batch_seq, kernel_kw, plain_kw, expect):
+    # -- Phases 3g, 3h, 3m and 3n: prefill forwards at full width ---------
+    def moe_flips(routes_a, routes_b) -> list:
+        """Picks (token, k) whose expert differs between two routings,
+        layer by layer."""
+        return [int((ra["idx"] != rb["idx"]).sum())
+                for ra, rb in zip(routes_a, routes_b)]
+
+    @contextlib.contextmanager
+    def recorded_routes(sink):
+        """Each ``moe.dispatch_slots`` call's ``{"idx": expert ids,
+        "keep": kept picks}`` appended to ``sink``, in call order."""
+        slots = lm_moe.dispatch_slots
+
+        def record_slots(gate_idx, mcfg, t):
+            pos, keep = slots(gate_idx, mcfg, t)
+            sink.append({"idx": gate_idx, "keep": keep})
+            return pos, keep
+
+        with mock.patch.object(lm_moe, "dispatch_slots", record_slots):
+            yield sink
+
+    @contextlib.contextmanager
+    def replayed_routes(recorded):
+        """``moe.route`` with each call's expert ids taken, in order, from
+        ``recorded`` (one entry an MoE layer); the gates are the path's
+        own probabilities at those ids, renormalised as ``route`` does."""
+        calls = iter(recorded)
+        route = lm_moe.route
+
+        def replay(p_, mcfg, xt):
+            probs, _, _ = route(p_, mcfg, xt)
+            idx = next(calls)["idx"]
+            vals = probs.gather(1, idx)
+            return probs, vals / torch.clamp(vals.sum(-1, keepdim=True),
+                                             min=1e-9), idx
+
+        with mock.patch.object(lm_moe, "route", replay):
+            yield
+
+    def prefill_cell(path, arch, batch_seq, kernel_kw, plain_kw, expect,
+                     cut=None, patches=False, draws=None):
         """``forward(last_only=True)`` through the kernels, then the same
         weights through the plain paths in bf16 and in fp32 (each layer's
         weights upcast as the fp32 forward reaches it, so no fp32 copy of
         the model is held).  The kernel path's gap to the fp32 logits may
-        be at most twice the bf16 plain path's."""
+        be at most twice the bf16 plain path's.  ``cut``: ``(layers,
+        reason)`` keeps the first layers of the published depth, widths as
+        published.  ``patches``: a fusion batch, ``patch_frac`` of the
+        positions at random (a scattered mask) taking patch embeddings.
+        An MoE config's routing is recorded on every path: the kernel
+        path's dropped share of picks and, layer by layer, its picks that
+        differ from the fp32 path's (and the bf16 plain path's).  A pick
+        that flips changes its token's output wholesale, so the same bar
+        is also held with the fp32 path's picks replayed on both bf16
+        paths (``replayed_routes``), where only the arithmetic differs.
+        ``draws``: the generator of the cell's inputs (default ``gen``)."""
+        draws = gen if draws is None else draws
         cfg = dataclasses.replace(get_arch(arch), **kernel_kw)
         b_, s_ = batch_seq
+        if cut is not None:
+            full_gib = cfg.n_params() * 2 / 2**30
+            cfg = dataclasses.replace(cfg, n_layers=cut[0])
+            print(f"  depth cut from {get_arch(arch).n_layers} to {cut[0]} "
+                  f"layers (all of them: {full_gib:.0f} GiB of bf16 "
+                  f"weights; cut: {cfg.n_params() * 2 / 2**30:.1f} GiB): "
+                  f"{cut[1]}")
+        moe_cell = cfg.n_experts > 0
         print(f"  {cfg.name} CONFIG: {cfg.n_layers} layers, d="
               f"{cfg.d_model}, vocab {cfg.vocab}, {cfg.param_dtype}, "
               f"{kernel_kw}; forward(last_only=True) on {b_} x {s_} tokens")
+        # The reckoning before the run: bf16 weights, one layer in fp32
+        # (the fp32 pass), the bf16 plain path's (B, H, S, S) fp32 scores
+        # with their bf16 probabilities.
+        per_layer = (cfg.n_params() - 2 * cfg.vocab * cfg.d_model) \
+            / cfg.n_layers
+        reckon = (cfg.n_params() * 2 + per_layer * 4
+                  + b_ * cfg.n_heads * s_ * s_ * 6.0) / 2**30
+        print(f"  reckoned peak: {reckon:.1f} GiB above the live set "
+              f"(weights {cfg.n_params() * 2 / 2**30:.1f}, one fp32 layer "
+              f"{per_layer * 4 / 2**30:.1f}, plain scores "
+              f"{b_ * cfg.n_heads * s_ * s_ * 6.0 / 2**30:.1f})")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        live0 = torch.cuda.memory_allocated()
         t0 = time.perf_counter()
         model = get_model(cfg)
         params = model.init(SEED, device=dev)
@@ -1996,21 +2120,34 @@ def main() -> int:
         print(f"  {n_par / 1e9:.2f} B random parameters "
               f"({n_par * params.embed.element_size() / 2**30:.1f} GiB) on "
               f"the card in {time.perf_counter() - t0:.1f} s")
-        toks = torch.randint(0, cfg.vocab, (b_, s_), generator=gen).to(dev)
+        toks = torch.randint(0, cfg.vocab, (b_, s_), generator=draws).to(dev)
         batch = {"tokens": toks}
+        if patches:
+            n_pat = int(s_ * cfg.patch_frac)
+            mask = torch.zeros((b_, s_), dtype=torch.bool)
+            for row in range(b_):
+                mask[row, torch.randperm(s_, generator=draws)[:n_pat]] = True
+            batch["patch_mask"] = mask.to(dev)
+            batch["patch_embeds"] = (0.1 * torch.randn(
+                b_, n_pat, cfg.d_model, generator=draws).to(dev)).to(
+                torch.bfloat16)
+            first = int(mask[0].nonzero()[0])
+            print(f"  fusion: {n_pat} patches a row at random positions "
+                  f"(row 0's first at {first}), projected by patch_proj")
         model.forward(params, {"tokens": toks[:, :64]}, last_only=True)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         live = torch.cuda.memory_allocated()
         dispatch.reset_launches()
         t0 = time.perf_counter()
-        logits_k = model.forward(params, batch, last_only=True)[0]
+        with recorded_routes([]) as routes_k:
+            logits_k = model.forward(params, batch, last_only=True)[0]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = dict(dispatch.LAUNCHES)
         _, mem_text = memory_line(torch, live)
         record(path, wall, live, launches=launches, tok_per_s=b_ * s_ / wall,
-               n_params=n_par)
+               n_params=n_par, n_layers=cfg.n_layers)
         print(f"  launches: {launches}")
         print(f"  wall {wall:.3f} s ({b_ * s_ / wall:.0f} tokens/s), "
               f"{mem_text}")
@@ -2022,17 +2159,21 @@ def main() -> int:
                 f"{path}: logits are not finite (B, 1, vocab)")
         plain_model = get_model(dataclasses.replace(cfg, **plain_kw))
         t0 = time.perf_counter()
-        logits_p = plain_model.forward(params, batch, last_only=True)[0]
+        with recorded_routes([]) as routes_p:
+            logits_p = plain_model.forward(params, batch, last_only=True)[0]
         torch.cuda.synchronize()
         wall_p = time.perf_counter() - t0
         cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                     act_dtype="float32", **plain_kw)
-        h = lm_T.embed(cfg32, params, toks)
+        h = lm_T.embed(cfg32, params, toks, batch.get("patch_embeds"),
+                       batch.get("patch_mask"))
         positions = torch.arange(s_, device=dev)[None].expand(b_, s_)
-        for block in params.layers:
-            block32 = copy.deepcopy(block).float()
-            h = lm_T.block_apply(cfg32, block.kind, block32, h, positions)
-            del block32
+        with recorded_routes([]) as routes_32:
+            for block in params.layers:
+                block32 = copy.deepcopy(block).float()
+                h, _ = lm_T.block_apply(cfg32, block.kind, block32, h,
+                                        positions)
+                del block32
         h = lm_layers.rms_norm(h[:, -1:], params.final_norm.float())
         logits_32 = h @ params.head.float()
         scale = float(logits_32.abs().max())
@@ -2042,12 +2183,59 @@ def main() -> int:
               f"kernel path {gap_k:.4e}, bf16 plain path ({plain_kw}, "
               f"{wall_p:.3f} s) {gap_p:.4e} of max|logit| {scale:.3e}; the "
               f"kernel path's may be at most 2x the plain path's")
-        require(gap_k <= 2 * gap_p, f"{path}: kernel path {gap_k:.3e} > 2 x "
-                f"plain {gap_p:.3e} from the fp32 logits")
         summary["paths"][path].update(plain_wall_s=wall_p, gap_kernel=gap_k,
                                       gap_plain_bf16=gap_p)
+        if moe_cell:
+            picks = b_ * s_ * cfg.moe_top_k
+            dropped = [1.0 - float(r["keep"].float().mean())
+                       for r in routes_k]
+            flips_k = moe_flips(routes_k, routes_32)
+            flips_p = moe_flips(routes_p, routes_32)
+            last = torch.arange(1, b_ + 1, device=dev) * s_ - 1
+            last_k, last_p = (
+                sum(int((ra["idx"][last] != rb["idx"][last]).sum())
+                    for ra, rb in zip(routes, routes_32))
+                for routes in (routes_k, routes_p))
+            print(f"  MoE routing, {len(routes_k)} layers x {picks} picks "
+                  f"(top-{cfg.moe_top_k} of {cfg.n_experts}, capacity "
+                  f"{lm_moe.capacity_of(lm_T.moe_config(cfg), b_ * s_)[1]} "
+                  f"a chunk): dropped share by layer "
+                  f"{[round(d, 4) for d in dropped]}; picks that differ "
+                  f"from the fp32 path by layer: kernel path {flips_k}, "
+                  f"bf16 plain path {flips_p}; at the last positions (the "
+                  f"logits compared), over all layers: {last_k} and "
+                  f"{last_p}")
+            with replayed_routes(routes_32):
+                logits_kr = model.forward(params, batch, last_only=True)[0]
+            with replayed_routes(routes_32):
+                logits_pr = plain_model.forward(params, batch,
+                                                last_only=True)[0]
+            gap_kr = max_err(torch, logits_kr.float(), logits_32) / scale
+            gap_pr = max_err(torch, logits_pr.float(), logits_32) / scale
+            print(f"  with the fp32 path's picks replayed on both bf16 "
+                  f"paths: kernel path {gap_kr:.4e}, bf16 plain path "
+                  f"{gap_pr:.4e} of max|logit|; the kernel path's may be "
+                  f"at most 2x the plain path's")
+            require(gap_kr <= 2 * gap_pr, f"{path}: with the fp32 picks, "
+                    f"kernel path {gap_kr:.3e} > 2 x plain {gap_pr:.3e}")
+            summary["paths"][path].update(
+                dropped_share=dropped, flips_kernel_vs_fp32=flips_k,
+                flips_plain_vs_fp32=flips_p, last_flips_kernel=last_k,
+                last_flips_plain=last_p, gap_kernel_fp32_picks=gap_kr,
+                gap_plain_fp32_picks=gap_pr)
+            del logits_kr, logits_pr
+        require(gap_k <= 2 * gap_p, f"{path}: kernel path {gap_k:.3e} > 2 x "
+                f"plain {gap_p:.3e} from the fp32 logits")
         del params, model, logits_k, logits_p, logits_32, h
+        del routes_k, routes_p, routes_32
         torch.cuda.empty_cache()
+        peak = torch.cuda.max_memory_allocated()
+        summary["paths"][path]["cell_peak_above_live_gib"] = \
+            (peak - live0) / 2**30
+        summary["paths"][path]["reckoned_peak_gib"] = reckon
+        print(f"  the cell's peak: {(peak - live0) / 2**30:.2f} GiB above "
+              f"the {live0 / 2**30:.2f} GiB live before it (reckoned "
+              f"{reckon:.1f})")
         return launches
 
     print("[3g] dense prefill: the flash kernel on every attention layer")
@@ -2063,6 +2251,170 @@ def main() -> int:
         {"attn_impl": "jnp", "rec_impl": "scan"},
         {"flash_attention": 12, "linear_scan": 26})
     phase_done("phase 3h")
+
+    # -- Phases 3m-3o: the rest of the zoo at full width (inputs from
+    # zoo_gen) ------------------------------------------------------------
+    t_zoo = time.perf_counter()
+
+    def decode_check(name, model, params, batch, step, state):
+        """``ZOO_DECODE_STEPS`` decode steps against the teacher-forced
+        forward of the same tokens, at the reference's bar
+        (``tests/test_arch_smoke.py``: atol 5e-3, rtol 1e-3)."""
+        toks = batch["tokens"]
+        full = model.forward(params, batch)[0]
+        outs = []
+        for t in range(toks.shape[1]):
+            lg, state = step(params, toks[:, t:t + 1], state)
+            outs.append(lg)
+        dec = torch.cat(outs, dim=1)
+        gap = (dec - full).abs()
+        worst = float((gap - DECODE_RTOL * full.abs()).max())
+        print(f"  {name}: {toks.shape[1]} decode steps against the "
+              f"teacher-forced forward: max|decode - forward| "
+              f"{float(gap.max()):.3e} (max|logit| "
+              f"{float(full.abs().max()):.3e}; bar atol {DECODE_ATOL:g} + "
+              f"rtol {DECODE_RTOL:g} |forward|)")
+        require(bool(torch.isfinite(dec).all()) and worst <= DECODE_ATOL,
+                f"{name}: decode differs from the forward beyond the bar")
+        return float(gap.max())
+
+    print("[3m] MoE prefill: phi3_5_moe, the flash kernel on every "
+          "attention layer, 16 experts top-2")
+    launches_m = prefill_cell(
+        "prefill_moe", "phi3_5_moe", MOE_PREFILL, {"attn_impl": "pallas"},
+        {"attn_impl": "jnp"}, {"flash_attention": MOE_LAYERS},
+        cut=(MOE_LAYERS, "one 80 GB card holds 4 layers with the fp32 "
+             "layer copies and the plain path's attention scores"),
+        draws=zoo_gen)
+    cfg_md = dataclasses.replace(
+        get_arch("phi3_5_moe"), n_layers=ZOO_DECODE_LAYERS,
+        param_dtype="float32", act_dtype="float32", attn_impl="pallas",
+        capacity_factor=float(get_arch("phi3_5_moe").n_experts))
+    model_md = get_model(cfg_md)
+    params_md = model_md.init(SEED, device=dev)
+    toks_md = torch.randint(0, cfg_md.vocab, (2, ZOO_DECODE_STEPS),
+                            generator=zoo_gen).to(dev)
+    gap_md = decode_check(
+        f"phi3_5_moe at full width, {ZOO_DECODE_LAYERS} layers, fp32, "
+        f"drop-free capacity (capacity_factor {cfg_md.capacity_factor:g})",
+        model_md, params_md, {"tokens": toks_md}, model_md.decode_step,
+        model_md.init_decode_state(2, 2 * ZOO_DECODE_STEPS, device=dev))
+    summary["paths"]["prefill_moe"]["decode_vs_forward_max_abs"] = gap_md
+    del model_md, params_md
+    torch.cuda.empty_cache()
+    phase_done("phase 3m")
+
+    print("[3n] early-fusion VLM prefill: llama4_scout, patches scattered "
+          "over the tokens, 16 experts top-1, the flash kernel on every "
+          "attention layer")
+    launches_n = prefill_cell(
+        "prefill_fusion", "llama4_scout", FUSION_PREFILL,
+        {"attn_impl": "pallas"}, {"attn_impl": "jnp"},
+        {"flash_attention": FUSION_LAYERS},
+        cut=(FUSION_LAYERS, "one 80 GB card holds 2 layers with the "
+             "202,048-token embedding and head, the fp32 layer copies and "
+             "the plain path's attention scores"), patches=True,
+        draws=zoo_gen)
+    phase_done("phase 3n")
+
+    print("[3o] encoder-decoder: seamless_m4t_v2 CONFIG whole (24 + 24 "
+          "layers), the flash kernel on encoder, decoder and cross "
+          "attention")
+    cfg_o = dataclasses.replace(get_arch("seamless_m4t_v2"),
+                                attn_impl="pallas")
+    model_o = get_model(cfg_o)
+    (fb, fs), (tb, ts) = ENCDEC_FRAMES, ENCDEC_TOKENS
+    print(f"  {cfg_o.name} CONFIG: {cfg_o.encoder_layers} + "
+          f"{cfg_o.n_layers} layers, d={cfg_o.d_model}, vocab "
+          f"{cfg_o.vocab}, {cfg_o.param_dtype}; forward(last_only=True) on "
+          f"frames ({fb}, {fs}, {cfg_o.d_model}) and tokens ({tb}, {ts})")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live0 = torch.cuda.memory_allocated()
+    params_o = model_o.init(SEED, device=dev)
+    n_par_o = sum(p_.numel() for p_ in params_o.parameters())
+    print(f"  {n_par_o / 1e9:.2f} B random parameters "
+          f"({n_par_o * 2 / 2**30:.1f} GiB); reckoned peak "
+          f"{n_par_o * 6 / 2**30:.1f} GiB above the live set (the bf16 "
+          f"weights and their fp32 copy)")
+    batch_o = {"frames": (0.1 * zoo_randn(fb, fs, cfg_o.d_model)).to(
+                   torch.bfloat16),
+               "tokens": torch.randint(0, cfg_o.vocab, (tb, ts),
+                                       generator=zoo_gen).to(dev)}
+    model_o.forward(params_o, {"frames": batch_o["frames"][:, :64],
+                               "tokens": batch_o["tokens"][:, :64]},
+                    last_only=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    dispatch.reset_launches()
+    t0 = time.perf_counter()
+    logits_ok = model_o.forward(params_o, batch_o, last_only=True)[0]
+    torch.cuda.synchronize()
+    wall_o = time.perf_counter() - t0
+    launches_o = dict(dispatch.LAUNCHES)
+    _, mem_text = memory_line(torch, live)
+    record("encdec", wall_o, live, launches=launches_o,
+           tok_per_s=(fb * fs + tb * ts) / wall_o, n_params=n_par_o)
+    print(f"  launches: {launches_o}")
+    print(f"  wall {wall_o:.3f} s ({(fb * fs + tb * ts) / wall_o:.0f} frames "
+          f"+ tokens/s), {mem_text}")
+    n_flash_o = cfg_o.encoder_layers + 2 * cfg_o.n_layers
+    require(launches_o["flash_attention"] == n_flash_o,
+            f"3o: flash_attention launched {launches_o['flash_attention']} "
+            f"times, not {n_flash_o}")
+    require(tuple(logits_ok.shape) == (tb, 1, cfg_o.vocab)
+            and bool(torch.isfinite(logits_ok).all()),
+            "3o: logits are not finite (B, 1, vocab)")
+    t0 = time.perf_counter()
+    logits_op = get_model(dataclasses.replace(cfg_o, attn_impl="jnp")
+                          ).forward(params_o, batch_o, last_only=True)[0]
+    torch.cuda.synchronize()
+    wall_op = time.perf_counter() - t0
+    cfg_o32 = dataclasses.replace(cfg_o, param_dtype="float32",
+                                  act_dtype="float32", attn_impl="jnp")
+    params_o32 = copy.deepcopy(params_o).float()
+    del params_o
+    logits_o32 = get_model(cfg_o32).forward(params_o32, batch_o,
+                                            last_only=True)[0]
+    scale = float(logits_o32.abs().max())
+    gap_ok = max_err(torch, logits_ok.float(), logits_o32) / scale
+    gap_op = max_err(torch, logits_op.float(), logits_o32) / scale
+    print(f"  last-position logits against the fp32 plain forward: kernel "
+          f"path {gap_ok:.4e}, bf16 plain path ({wall_op:.3f} s) "
+          f"{gap_op:.4e} of max|logit| {scale:.3e}; the kernel path's may "
+          f"be at most 2x the plain path's")
+    require(gap_ok <= 2 * gap_op, f"3o: kernel path {gap_ok:.3e} > 2 x plain "
+            f"{gap_op:.3e} from the fp32 logits")
+    summary["paths"]["encdec"].update(plain_wall_s=wall_op, gap_kernel=gap_ok,
+                                      gap_plain_bf16=gap_op)
+    del logits_ok, logits_op, logits_o32
+    # fp32, whole depth: encode once, the cross memory of every decoder
+    # layer, then decode steps against the teacher-forced forward (the
+    # kernel path: the fp32 flash kernel).
+    cfg_o32k = dataclasses.replace(cfg_o32, attn_impl="pallas")
+    model_o32 = get_model(cfg_o32k)
+    frames_d = batch_o["frames"][:, :fs].float()
+    toks_d = batch_o["tokens"][:, :ZOO_DECODE_STEPS]
+    state_o = lm_encdec.decode_state_from_memory(
+        cfg_o32k, params_o32, lm_encdec.encode(cfg_o32k, params_o32,
+                                               frames_d))
+    gap_od = decode_check(
+        f"seamless_m4t_v2 whole, fp32: encode, decode_state_from_memory "
+        f"(frames {tuple(frames_d.shape)})", model_o32, params_o32,
+        {"frames": frames_d, "tokens": toks_d}, model_o32.decode_step,
+        state_o)
+    summary["paths"]["encdec"]["decode_vs_forward_max_abs"] = gap_od
+    del params_o32, state_o
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    summary["paths"]["encdec"]["cell_peak_above_live_gib"] = \
+        (peak - live0) / 2**30
+    print(f"  the cell's peak: {(peak - live0) / 2**30:.2f} GiB above the "
+          f"{live0 / 2**30:.2f} GiB live before it")
+    phase_done("phase 3o")
+    summary["zoo_s"] = time.perf_counter() - t_zoo
+    print(f"  phases 3m-3o took {summary['zoo_s']:.1f} s")
 
     # -- Phase 3i: MT-HFL (Algorithm 1) on the raw cell's labels ----------
     print("[3i] MT-HFL: train_mthfl on phase 3c's users and on-card labels, "
@@ -3152,29 +3504,45 @@ def main() -> int:
 
     # flash_attention at the two prefill cells' shapes (bf16, as the
     # models run): Qwen3 (B=2, S=4096, H=16, hd=128, causal) and, nested,
-    # RecurrentGemma (B=1, S=4096, H=16, hd=256, window 2048).  Library
-    # call: scaled_dot_product_attention on the (B, H, S, hd) views, with
-    # the window as a boolean mask.
+    # RecurrentGemma (B=1, S=4096, H=16, hd=256, window 2048); hd 32 at
+    # the REDUCED configs' head dim; and phase 3o's three attentions at
+    # hd 64: the encoder's (bidirectional), the decoder's self (causal)
+    # and the cross attention (bidirectional, S != Skv).  Library call:
+    # scaled_dot_product_attention on the (B, H, S, hd) views, with the
+    # window as a boolean mask.
     import torch.nn.functional as F
 
-    def flash_entry(b_, s_, h_, hd_, window, reps):
+    def flash_entry(b_, s_, h_, hd_, window, reps, time_fp32=False,
+                    draw=randn, causal=True, skv_=None):
         # The same inputs in fp32 first: the tile walk and its skips at
         # this shape to 1e-5 x max|plain|; then bf16 element by element.
-        qkv32 = [randn(b_, s_, h_, hd_) for _ in range(3)]
-        name = f"flash ({b_}, {s_}, {h_}, {hd_}) window {window}"
+        # ``time_fp32``: the CUDA-core kernel's time on the fp32 inputs
+        # too, beside its plain version's.  ``skv_``: the keys' length
+        # (default S).
+        skv_ = s_ if skv_ is None else skv_
+        qkv32 = [draw(b_, n_, h_, hd_) for n_ in (s_, skv_, skv_)]
+        name = (f"flash ({b_}, {s_}, {h_}, {hd_}) Skv {skv_} window "
+                f"{window} {'causal' if causal else 'bidirectional'}")
         rel32 = flash_check(f"{name} fp32", flash_attention(
-            *qkv32, causal=True, window=window), flash_ref(
-            *qkv32, True, window))
+            *qkv32, causal=causal, window=window), flash_ref(
+            *qkv32, causal, window))
+        fp32_times = {}
+        if time_fp32:
+            fp32_times = dict(
+                fp32_ms=time_ms(torch, lambda: flash_attention(
+                    *qkv32, causal=causal, window=window), reps),
+                fp32_plain_ms=time_ms(torch, lambda: flash_ref(
+                    *qkv32, causal, window), 2))
         q_, k_, v_ = (t_.to(torch.bfloat16) for t_ in qkv32)
         del qkv32
-        out = flash_attention(q_, k_, v_, causal=True, window=window)
-        want = flash_ref(q_.float(), k_.float(), v_.float(), True, window)
+        out = flash_attention(q_, k_, v_, causal=causal, window=window)
+        want = flash_ref(q_.float(), k_.float(), v_.float(), causal, window)
         used = flash_check(f"{name} bf16", out, want)
         rel = max_err(torch, out.float(), want) / float(want.abs().max())
         abs_err = max_err(torch, out.float(), want)
         rel_out32 = rel_check(f"{name} bf16 fp32 out",
                               _flash_attention_fp32_out(
-                                  q_, k_, v_, True, window), want, 1e-5)
+                                  q_, k_, v_, causal, window), want, 1e-5)
         del want
         qt, kt, vt = (t_.transpose(1, 2) for t_ in (q_, k_, v_))
         if window:
@@ -3187,42 +3555,60 @@ def main() -> int:
         else:
             def library():
                 return F.scaled_dot_product_attention(qt, kt, vt,
-                                                      is_causal=True)
+                                                      is_causal=causal)
         require(max_err(torch, library().transpose(1, 2).float(),
                         out.float()) <= 2 ** -6 * float(out.abs().max()),
                 "flash: the library call computes another function")
-        b, by, b_pv32 = flash_bound_ms(b_ * h_, hd_,
-                                       visible_pairs(s_, window),
-                                       2.0 * 4 * b_ * s_ * h_ * hd_)
+        pairs = visible_pairs(s_, window) if causal else s_ * skv_
+        b, by, b_pv32 = flash_bound_ms(b_ * h_, hd_, pairs,
+                                       2.0 * 2 * b_ * h_ * hd_ * (s_ + skv_))
         return dict(
             max_abs_err=abs_err, rel_err=rel, bf16_limit_used=used,
             fp32_rel_err=rel32, fp32_out_rel_err=rel_out32,
             bound_fp32_pv_ms=b_pv32,
             ms=time_ms(torch, lambda: flash_attention(
-                q_, k_, v_, causal=True, window=window), reps),
-            plain_ms=time_ms(torch, lambda: flash_ref(q_, k_, v_, True,
+                q_, k_, v_, causal=causal, window=window), reps),
+            plain_ms=time_ms(torch, lambda: flash_ref(q_, k_, v_, causal,
                                                       window), 2),
             bound_ms=b, bound_by=by,
             library_ms=time_ms(torch, library, reps),
-            shape=[b_, s_, h_, hd_], window=window)
+            shape=[b_, s_, h_, hd_], skv=skv_, causal=causal, window=window,
+            **fp32_times)
 
     dense = flash_entry(*DENSE_PREFILL, 16, 128, 0, 5)
     hybrid = flash_entry(*HYBRID_PREFILL, 16, 256, 2048, 5)
+    hd32 = flash_entry(*DENSE_PREFILL, HD32_HEADS, 32, 0, 5, time_fp32=True,
+                       draw=zoo_randn)
+    # phase 3o's shapes (24 launches each on the main path)
+    h_o, hd_o = cfg_o.n_heads, cfg_o.head_dim
+    encdec_flash = {
+        "encdec_encoder": flash_entry(*ENCDEC_FRAMES, h_o, hd_o, 0, 5,
+                                      draw=zoo_randn, causal=False),
+        "encdec_self": flash_entry(*ENCDEC_TOKENS, h_o, hd_o, 0, 5,
+                                   draw=zoo_randn),
+        "encdec_cross": flash_entry(*ENCDEC_TOKENS, h_o, hd_o, 0, 5,
+                                    draw=zoo_randn, causal=False,
+                                    skv_=ENCDEC_FRAMES[1])}
+    flash_by_path = {
+        "prefill_dense": launches_g["flash_attention"],
+        "prefill_hybrid": launches_h["flash_attention"],
+        "prefill_moe": launches_m["flash_attention"],
+        "prefill_fusion": launches_n["flash_attention"],
+        "encdec": launches_o["flash_attention"]}
     kernels.append(dict(
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_tc.cu",
         replaces="src/repro/kernels/flash_attention/flash.py:73",
-        launches=launches_g["flash_attention"]
-        + launches_h["flash_attention"],
-        launches_by_path={"prefill_dense": launches_g["flash_attention"],
-                          "prefill_hybrid": launches_h["flash_attention"]},
-        **dense, hybrid=hybrid))
+        launches=sum(flash_by_path.values()),
+        launches_by_path=flash_by_path, **dense, hybrid=hybrid, hd32=hd32,
+        **encdec_flash))
 
     # wkv_chunked at the serving prefill's shape: one chunk of a wave
     # (B=4, S=64, H=32, hd=64), bf16 r, k, v, fp32 decay logs and state,
     # under both compute dtypes (3f passes bf16).  bf16 compute: out and
     # state within 2^-8 x max of the plain chunk form with its roundings,
-    # and out within the existing 2^-8 x max of the fp32 oracle; fp32
+    # and out within the existing 2^-8 x max of the fp32 oracle and within
+    # twice the plain chunk form's gap to that oracle (phase 2's bar); fp32
     # compute: within 1e-5 of both (out rounded to bf16: 2^-8).  Bound:
     # about 4 hd^2 operations per token and head (the products at the
     # compute dtype's tensor-core rate, every one as fp32 in
@@ -3252,6 +3638,13 @@ def main() -> int:
             rel_st = rel_check(f"{name} state", new_st, plain_st, 2 ** -8)
             rel_oracle = rel_check(f"{name} against the fp32 oracle",
                                    out.float(), want, 2 ** -8)
+            # and, as phase 2 holds it, at most twice the plain chunk
+            # form's gap (its output rounded as the kernel's is)
+            plain_gap = max_err(torch, plain.to(out.dtype).float(),
+                                want) / float(want.abs().max())
+            require(rel_oracle <= max(2 * plain_gap, 1e-5),
+                    f"{name}: gap to the fp32 oracle {rel_oracle:.3e} is "
+                    f"over twice the plain chunk form's {plain_gap:.3e}")
             b, by, b32 = assign_bound_ms(0.0, 4.0 * whd * whd * n_tok,
                                          "bf16", w_bytes)
         else:
@@ -3269,6 +3662,9 @@ def main() -> int:
             state_rel_err=rel_st, oracle_rel_err=rel_oracle,
             plain_oracle_rel_err=max_err(torch, plain, want) / float(
                 want.abs().max()),
+            plain_bf16_oracle_rel_err=max_err(
+                torch, plain.to(out.dtype).float(), want) / float(
+                want.abs().max()),
             ms=time_ms(torch, call, 20), device_ms=t_dev,
             device_time_by=dev_how,
             plain_ms=time_ms(torch, lambda: wkv_chunked_ref(
@@ -3279,7 +3675,9 @@ def main() -> int:
               f"{by}; out {rel:.3e} and state "
               f"{rel_st:.3e} x max of the plain chunk form; out "
               f"{rel_oracle:.3e} of the fp32 oracle (plain chunk form "
-              f"{wkv_rows[cd]['plain_oracle_rel_err']:.3e})")
+              f"{wkv_rows[cd]['plain_oracle_rel_err']:.3e}, its output "
+              f"rounded to bf16 "
+              f"{wkv_rows[cd]['plain_bf16_oracle_rel_err']:.3e})")
     kernels.append(dict(
         name="wkv_chunked", route="cuda",
         source="src/repro_torch/kernels/csrc/recurrent_scan.cu",
@@ -3317,8 +3715,13 @@ def main() -> int:
     print(f"  linear_scan: {t_kernel:.4f} ms a call, device time "
           f"{t_dev:.4f} ms ({dev_how}), {scan_bytes / t_dev / 1e6:.0f} GB/s, "
           f"bound {b:.4f} by {by}")
-    for e in (dense, hybrid):
-        print(f"  flash_attention shape {e['shape']} window {e['window']}: "
+    print(f"  flash_attention hd 32 {hd32['shape']} fp32 inputs (the "
+          f"CUDA-core kernel): {hd32['fp32_ms']:.3f} ms (plain "
+          f"{hd32['fp32_plain_ms']:.3f})")
+    for e in (dense, hybrid, hd32, *encdec_flash.values()):
+        print(f"  flash_attention shape {e['shape']} Skv {e['skv']} "
+              f"{'causal' if e['causal'] else 'bidirectional'} window "
+              f"{e['window']}: "
               f"{e['ms']:.3f} ms (plain {e['plain_ms']:.3f}, library "
               f"{e['library_ms']:.3f}, bound {e['bound_ms']:.4f} by "
               f"{e['bound_by']}, {e['bound_fp32_pv_ms']:.4f} with p.v at the "

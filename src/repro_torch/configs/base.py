@@ -158,9 +158,8 @@ _ALIASES = {
 }
 
 
-#: The configs the port carries; the rest wait for ROADMAP Queue 1
-#: item 14.
-PORTED_ARCH_IDS = ("qwen3_1_7b", "rwkv6_1_6b", "recurrentgemma_9b")
+#: The LM configs the port carries: every LM id of the reference.
+PORTED_ARCH_IDS = tuple(a for a in ARCH_IDS if not a.startswith("paper_"))
 
 
 def get_arch(arch_id: str, reduced: bool = False):
@@ -168,10 +167,6 @@ def get_arch(arch_id: str, reduced: bool = False):
     arch_id = _ALIASES.get(arch_id, arch_id).replace("-", "_").replace(".", "_")
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
-    if arch_id not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"arch {arch_id!r} is not ported yet (ROADMAP Queue 1 item 14); "
-            f"ported: {PORTED_ARCH_IDS}")
     mod = importlib.import_module(f"repro_torch.configs.{arch_id}")
     return getattr(mod, "REDUCED" if reduced else "CONFIG")
 

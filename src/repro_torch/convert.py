@@ -10,9 +10,12 @@ parameters and signatures, free of ``eigh``'s sign and
 degenerate-subspace choices.
 
 The LM model zoo does have weights; ``lm_params_from_reference`` walks
-the reference's nested parameter dict into the port's ``LM`` and
-``cluster_heads_from_reference`` carries the per-cluster serving heads,
-so a test runs both packages on the same random weights.
+the reference's nested decoder parameter dict (MoE experts and the
+fusion ``patch_proj`` included) into the port's ``LM``,
+``encdec_params_from_reference`` its encoder-decoder tree into an
+``EncDec``, and ``cluster_heads_from_reference`` carries the
+per-cluster serving heads, so a test runs both packages on the same
+random weights.
 
 The trainer's models (the paper's CNN and MLP) carry nested ``{"w",
 "b"}`` dicts in the reference and flat PyTorch-layout dicts in the port:
@@ -37,7 +40,7 @@ from repro_torch.fed.ifca import IFCAConfig
 from repro_torch.fed.trainer import MTHFLConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.launch.decode_loop import ClusterHeads
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 __all__ = ["similarity_config_from_reference",
            "cluster_config_from_reference", "signatures_from_reference",
@@ -45,6 +48,7 @@ __all__ = ["similarity_config_from_reference",
            "feature_config_from_reference",
            "signature_config_from_reference", "phi_params_from_reference",
            "membership_config_from_reference", "lm_params_from_reference",
+           "encdec_params_from_reference",
            "cluster_heads_from_reference",
            "paper_cnn_params_from_reference",
            "paper_mlp_params_from_reference", "mthfl_config_from_reference",
@@ -147,6 +151,16 @@ def _lm_tensor(a, device) -> torch.Tensor:
         device=device, dtype=getattr(torch, arr.dtype.name))
 
 
+def _walk(tree: dict, device, pick=None) -> dict:
+    """A nested dict of reference arrays -> tensors on ``device``; with
+    ``pick``, each leaf indexed along its leading (stacked-layer) axis
+    first, so stacked experts ``(L, E, d, f)`` become ``(E, d, f)``."""
+    return {key: _walk(val, device, pick) if isinstance(val, dict)
+            else _lm_tensor(val if pick is None else np.asarray(val)[pick],
+                            device)
+            for key, val in tree.items()}
+
+
 def lm_params_from_reference(cfg, params: dict,
                              device: str | torch.device = "cuda"
                              ) -> transformer.LM:
@@ -156,26 +170,36 @@ def lm_params_from_reference(cfg, params: dict,
     layer-group axis) and the list ``groups_unrolled``; then the
     remainder layers of ``rest``."""
     dev = resolve_device(device)
-
-    def walk(tree, pick=None):
-        return {key: walk(val, pick) if isinstance(val, dict)
-                else _lm_tensor(val if pick is None else np.asarray(val)[pick],
-                                dev)
-                for key, val in tree.items()}
-
     pattern = cfg.block_pattern
     blocks = []
     if "groups" in params:
         for g in range(cfg.n_groups):
-            blocks += [walk(params["groups"][str(j)], g)
+            blocks += [_walk(params["groups"][str(j)], dev, g)
                        for j in range(len(pattern))]
     else:
         for group in params.get("groups_unrolled", []):
-            blocks += [walk(group[str(j)]) for j in range(len(pattern))]
-    blocks += [walk(params["rest"][str(j)])
+            blocks += [_walk(group[str(j)], dev)
+                       for j in range(len(pattern))]
+    blocks += [_walk(params["rest"][str(j)], dev)
                for j in range(len(cfg.rest_kinds))]
-    top = walk({key: params[key] for key in ("embed", "final_norm", "head")})
+    top = _walk({key: params[key] for key in ("embed", "final_norm", "head",
+                                              "patch_proj") if key in params},
+                dev)
     return transformer.from_trees(cfg, top, blocks)
+
+
+def encdec_params_from_reference(cfg, params: dict,
+                                 device: str | torch.device = "cuda"
+                                 ) -> encdec.EncDec:
+    """The reference's encoder-decoder tree (``enc`` and ``dec`` stacked
+    along a leading layer axis) -> the port's ``EncDec`` on ``device``."""
+    dev = resolve_device(device)
+    top = _walk({key: params[key] for key in ("frame_proj", "embed",
+                                              "enc_norm", "final_norm",
+                                              "head")}, dev)
+    enc = [_walk(params["enc"], dev, i) for i in range(cfg.encoder_layers)]
+    dec = [_walk(params["dec"], dev, i) for i in range(cfg.n_layers)]
+    return encdec.from_trees(cfg, top, enc, dec)
 
 
 def cluster_heads_from_reference(heads, device: str | torch.device = "cuda"

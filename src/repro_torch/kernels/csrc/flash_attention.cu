@@ -296,6 +296,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 16:
       return launch<T, 16>(q, k, v, o, B, S, Skv, H, scale, causal, window,
                            stream);
+    case 32:
+      return launch<T, 32>(q, k, v, o, B, S, Skv, H, scale, causal, window,
+                           stream);
     case 64:
       return launch<T, 64>(q, k, v, o, B, S, Skv, H, scale, causal, window,
                            stream);
@@ -312,7 +315,7 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 }  // namespace
 
 // q, o (B, S, H, hd); k, v (B, Skv, H, hd); all fp32, contiguous.  hd in
-// {16, 64, 128, 256}; B * H <= 65535.
+// {16, 32, 64, 128, 256}; B * H <= 65535.
 REPRO_EXPORT int repro_flash_attention(const void* q, const void* k,
                                        const void* v, void* o, int B, int S,
                                        int Skv, int H, int hd, float scale,

@@ -322,6 +322,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 16:
       return launch<16, OutT>(q, k, v, o, B, S, Skv, H, scale, causal,
                               window, stream);
+    case 32:
+      return launch<32, OutT>(q, k, v, o, B, S, Skv, H, scale, causal,
+                              window, stream);
     case 64:
       return launch<64, OutT>(q, k, v, o, B, S, Skv, H, scale, causal,
                               window, stream);
@@ -339,7 +342,7 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
 
 // q (B, S, H, hd), k and v (B, Skv, H, hd), bf16, contiguous and 16-byte
 // aligned; o (B, S, H, hd) in bf16, or fp32 when out_fp32 != 0.  hd in
-// {16, 64, 128, 256}; S / 64 <= 65535.
+// {16, 32, 64, 128, 256}; S / 64 <= 65535.
 REPRO_EXPORT int repro_flash_attention_tc(const void* q, const void* k,
                                           const void* v, void* o, int B,
                                           int S, int Skv, int H, int hd,

@@ -24,7 +24,7 @@ from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.flash_attention.ref import flash_ref
 
 #: Head dims the kernels are instantiated for.
-HEAD_DIMS = (16, 64, 128, 256)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 #: Input dtype -> the C entry point of the kernel that takes it.
 _ENTRIES = {torch.bfloat16: "repro_flash_attention_tc",

@@ -1,5 +1,7 @@
 """Serving launcher for the port: cluster-routed continuous-batching
-decode for a decoder ``--arch``.  Mirrors ``src/repro/launch/serve.py``.
+decode for a decoder ``--arch`` (dense, MoE, fusion, SSM or hybrid; an
+encoder-decoder arch exits with the reference's message).  Mirrors
+``src/repro/launch/serve.py``.
 
   # on the CUDA device (the default)
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6_1_6b
@@ -70,6 +72,8 @@ def main(argv=None) -> None:
     device = resolve_device(args.device)
     cfg = get_arch(args.arch, reduced=bool(args.reduced))
     m = get_model(cfg)
+    if m.is_encdec:
+        raise SystemExit("decoder-only serving; use examples for enc-dec")
     params = m.init(0, device=device)
     heads = ClusterHeads.init(1, params.head, n_clusters=args.clusters)
 

@@ -1,6 +1,7 @@
 """GQA attention, PyTorch port of ``src/repro/models/attention.py``:
-training / prefill (causal, sliding-window, bidirectional) and decode
-against a KV cache (full or rolling-window).
+training / prefill (causal, sliding-window, bidirectional, cross) and
+decode against a KV cache (full or rolling-window) or against an
+encoder's memory.
 
 Layouts:
   q (B, S, H, hd)   k/v (B, S, K, hd)   K = n_kv_heads, G = H // K groups.
@@ -17,8 +18,9 @@ tensors, its plain version on the CPU).
 
 Decode writes the new keys and values into the cache tensors in place
 (the reference's donated buffers) and returns the same tensors.
-Cross-attention (``kv_x``, ``cross_decode``, ``memory_kv``) waits with
-the encoder-decoder models for ROADMAP Queue 1 item 14.
+Cross-attention (``attention(kv_x=)``, ``memory_kv``, ``cross_decode``)
+takes its keys and values from another sequence, without rope and
+without a causal mask (the encoder-decoder models, ``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from repro_torch.models import layers as L
 
 __all__ = ["AttnConfig", "attn_init", "attention", "decode_step",
            "decode_chunk", "init_cache", "multi_query_attention",
-           "chunked_attention"]
+           "chunked_attention", "cross_decode", "memory_kv"]
 
 NEG_INF = -2.0 ** 30  # large-negative for masking (bf16-safe)
 
@@ -50,13 +52,17 @@ class AttnConfig:
     impl: str = "jnp"          # jnp (plain einsum) | chunked | pallas
 
 
-def attn_init(gen, cfg: AttnConfig, dtype=torch.float32) -> dict:
+def attn_init(gen, cfg: AttnConfig, dtype=torch.float32,
+              kv_dim: int | None = None) -> dict:
+    """``kv_dim``: the source width of cross-attention K/V (defaults to
+    d_model)."""
+    kv_dim = kv_dim or cfg.d_model
     p = {
         "wq": L.dense_init(gen, cfg.d_model, cfg.n_heads * cfg.head_dim,
                            dtype),
-        "wk": L.dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
+        "wk": L.dense_init(gen, kv_dim, cfg.n_kv_heads * cfg.head_dim,
                            dtype),
-        "wv": L.dense_init(gen, cfg.d_model, cfg.n_kv_heads * cfg.head_dim,
+        "wv": L.dense_init(gen, kv_dim, cfg.n_kv_heads * cfg.head_dim,
                            dtype),
         "wo": L.dense_init(gen, cfg.n_heads * cfg.head_dim, cfg.d_model,
                            dtype),
@@ -67,11 +73,13 @@ def attn_init(gen, cfg: AttnConfig, dtype=torch.float32) -> dict:
     return p
 
 
-def _project_qkv(p, cfg: AttnConfig, x):
+def _project_qkv(p, cfg: AttnConfig, x, kv_x=None):
+    kv_x = x if kv_x is None else kv_x
     b, s = x.shape[:2]
+    sk = kv_x.shape[1]
     q = L.mm(x, p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = L.mm(x, p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = L.mm(x, p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = L.mm(kv_x, p.wk).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    v = L.mm(kv_x, p.wv).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rms_norm(q, p.q_norm)
         k = L.rms_norm(k, p.k_norm)
@@ -136,27 +144,32 @@ def chunked_attention(q, k, v, causal: bool, window: int = 0,
 
 def attention(p, cfg: AttnConfig, x: torch.Tensor,
               positions: torch.Tensor | None = None,
+              kv_x: torch.Tensor | None = None,
               mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Training / prefill path.  ``x (B, S, d)`` -> ``(B, S, d)``."""
+    """Training / prefill path.  ``x (B, S, d)`` -> ``(B, S, d)``.
+    ``kv_x (B, Skv, d_kv)`` makes it cross-attention: keys and values
+    from ``kv_x``, no rope, no causal mask."""
     b, s = x.shape[:2]
-    q, k, v = _project_qkv(p, cfg, x)
+    q, k, v = _project_qkv(p, cfg, x, kv_x)
+    is_cross = kv_x is not None
+    causal = cfg.causal and not is_cross
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    if not is_cross:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
     groups = cfg.n_heads // cfg.n_kv_heads
     k = _expand_kv(k, groups)
     v = _expand_kv(v, groups)
     if cfg.impl == "pallas" and mask is None:
-        out = flash_attention(q, k, v, causal=cfg.causal, window=cfg.window)
+        out = flash_attention(q, k, v, causal=causal, window=cfg.window)
     elif cfg.impl == "chunked" and mask is None:
-        out = chunked_attention(q, k, v, causal=cfg.causal,
-                                window=cfg.window)
+        out = chunked_attention(q, k, v, causal=causal, window=cfg.window)
     else:
         if mask is None:
             # the reference's training mask: no window without causality
-            mask = structural_mask(s, k.shape[1], cfg.causal,
-                                   cfg.window if cfg.causal else 0, x.device)
+            mask = structural_mask(s, k.shape[1], causal,
+                                   cfg.window if causal else 0, x.device)
         out = multi_query_attention(q, k, v, mask)
     return L.mm(out.reshape(b, s, -1), p.wo)
 
@@ -253,3 +266,37 @@ def decode_chunk(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, lengths
     out = _grouped_attention(p, cfg, q, cache["k"], cache["v"],
                              mask[:, None, None])
     return out, cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention decode against an encoder's memory
+# ---------------------------------------------------------------------------
+
+def cross_decode(p, cfg: AttnConfig, x: torch.Tensor,
+                 memory_k: torch.Tensor, memory_v: torch.Tensor
+                 ) -> torch.Tensor:
+    """Cross-attention of one new token ``x (B, 1, d)`` against
+    precomputed encoder memory ``memory_k/v (B, S_src, K, hd)``
+    (``memory_kv``, computed once and reused every step)."""
+    b = x.shape[0]
+    q = L.mm(x, p.wq).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p.q_norm)
+    groups = cfg.n_heads // cfg.n_kv_heads
+    kk = _expand_kv(memory_k, groups)
+    vv = _expand_kv(memory_v, groups)
+    mask = torch.ones((1, 1, 1, kk.shape[1]), dtype=torch.bool,
+                      device=x.device)
+    out = multi_query_attention(q, kk, vv, mask)
+    return L.mm(out.reshape(b, 1, -1), p.wo)
+
+
+def memory_kv(p, cfg: AttnConfig, memory: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention K/V of an encoder output ``memory (B, S, d)``."""
+    b, s = memory.shape[:2]
+    k = L.mm(memory, p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = L.mm(memory, p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if cfg.qk_norm:
+        k = L.rms_norm(k, p.k_norm)
+    return k, v

@@ -1,0 +1,148 @@
+"""Mixture-of-Experts FFN with top-k routing and capacity-based dispatch,
+PyTorch port of ``src/repro/models/moe.py``.
+
+GShard/Switch-style: tokens pick top-k experts; each expert processes at
+most ``capacity`` tokens of a dispatch chunk (overflow dropped).  The
+reference dispatches and combines through one-hot einsums; here a kept
+pick is an index into its expert's slots: the tokens are gathered into
+``(g, E, C, d)``, the expert products run batched over experts, and each
+token gathers its picks' outputs back.  The kept and dropped picks, and
+so the function, are the reference's.
+
+Experts are stacked ``(E, d_model, d_ff)``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import layers as L
+
+__all__ = ["MoEConfig", "moe_init", "moe_apply", "route", "capacity_of",
+           "dispatch_slots"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    d_model: int
+    d_ff: int                  # per-expert hidden dim
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    mlp_variant: str = "swiglu"
+    dispatch_chunk: int = 1024
+    # ^ tokens are dispatched in chunks ("groups") of this size with a
+    # per-chunk expert capacity, so the dispatch is linear in tokens.
+
+
+def moe_init(gen, cfg: MoEConfig, dtype=torch.float32) -> dict:
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+
+    def stack(d_in, d_out):
+        return torch.stack([L.dense_init(gen, d_in, d_out, dtype)
+                            for _ in range(e)])
+
+    p = {"router": L.dense_init(gen, d, e, dtype),
+         "w_up": stack(d, f),
+         "w_down": stack(f, d)}
+    if cfg.mlp_variant == "swiglu":
+        p["w_gate"] = stack(d, f)
+    return p
+
+
+def route(p, cfg: MoEConfig, xt: torch.Tensor
+          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Router of ``xt (T, d)``: (fp32 probabilities (T, E), renormalised
+    gates (T, k), expert ids (T, k)).  Among equal probabilities the lower
+    expert id comes first, as ``jax.lax.top_k`` orders them (a stable
+    descending sort; ``torch.topk`` does not promise an order)."""
+    probs = torch.softmax(L.mm(xt, p.router).float(), dim=-1)
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_vals, gate_idx = vals[:, :cfg.top_k], idx[:, :cfg.top_k]
+    gate_vals = gate_vals / torch.clamp(gate_vals.sum(dim=-1, keepdim=True),
+                                        min=1e-9)
+    return probs, gate_vals, gate_idx
+
+
+def capacity_of(cfg: MoEConfig, t: int) -> tuple[int, int]:
+    """``(tc, capacity)`` for ``t`` tokens: the dispatch chunk (one group
+    of all tokens when ``t`` is not a chunk multiple) and its per-expert
+    slots, as the reference computes them."""
+    e, k = cfg.n_experts, cfg.top_k
+    tc = min(cfg.dispatch_chunk, t)
+    if t % tc:
+        tc = t  # one group for odd tiny shapes
+    capacity = max(1, int(cfg.capacity_factor * k * tc / e))
+    capacity = min(capacity, tc)
+    return tc, capacity
+
+
+def dispatch_slots(gate_idx: torch.Tensor, cfg: MoEConfig, t: int
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pos, keep)``, both ``(T, k)``, for the expert ids ``gate_idx``:
+    a pick's slot in its expert (the picks of its dispatch chunk before
+    it, token-major and pick-minor, that chose the same expert) and
+    whether that slot is within the capacity."""
+    tc, capacity = capacity_of(cfg, t)
+    k = gate_idx.shape[1]
+    sel = F.one_hot(gate_idx, cfg.n_experts).reshape(t // tc, tc * k, -1)
+    pos = ((torch.cumsum(sel, dim=1) * sel).sum(dim=-1) - 1).reshape(t, k)
+    return pos, pos < capacity
+
+
+def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x (B, S, d)`` -> ``(out (B, S, d), aux_loss scalar)``.
+
+    Picks are numbered within each dispatch chunk token-major and
+    pick-minor; a pick is kept when fewer than ``capacity`` earlier picks
+    of its chunk chose its expert, so a token's second pick can drop
+    while its first is kept.  aux_loss is the load-balancing loss (mean
+    routed fraction of the first pick x mean router probability, scaled
+    by E) over all tokens.
+    """
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    e, k = cfg.n_experts, cfg.top_k
+    probs, gate_vals, gate_idx = route(p, cfg, xt)
+    tc, capacity = capacity_of(cfg, t)
+    g = t // tc
+
+    pos, keep = dispatch_slots(gate_idx, cfg, t)
+    chunk = (torch.arange(t, device=x.device) // tc)[:, None]
+    slot = (chunk * e + gate_idx) * capacity + pos           # (T, k)
+
+    # dispatch: every kept pick's token into its slot (slots are unique)
+    xe = x.new_zeros((g * e * capacity, d))
+    tok = torch.arange(t, device=x.device)[:, None].expand(t, k)
+    xe[slot[keep]] = xt[tok[keep]]
+    xe = xe.reshape(g, e, capacity, d)
+    up = _expert_mm(xe, p.w_up)
+    if cfg.mlp_variant == "swiglu":
+        h = F.silu(_expert_mm(xe, p.w_gate)) * up
+    else:
+        h = L.gelu(up)
+    ye = _expert_mm(h, p.w_down).reshape(g * e * capacity, d)
+
+    # combine: each token's kept picks, weighted by their gates in the
+    # activation dtype, summed over picks in pick order in fp32
+    w = torch.where(keep, gate_vals.to(x.dtype).float(), 0.0)
+    picked = ye[torch.where(keep, slot, 0)].float()          # (T, k, d)
+    out = (picked * w[..., None]).sum(dim=1).to(ye.dtype).reshape(b, s, d)
+
+    frac_tokens = F.one_hot(gate_idx[:, 0], e).float().mean(dim=0)
+    aux = e * torch.sum(frac_tokens * probs.mean(dim=0))
+    return out, aux
+
+
+def _expert_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``(g, E, C, a) x (E, a, c) -> (g, E, C, c)``: one batched product
+    over experts, with JAX's type promotion."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    g, e, c, a = x.shape
+    xs = x.to(dt).transpose(0, 1).reshape(e, g * c, a)
+    y = torch.bmm(xs, w.to(dt))
+    return y.reshape(e, g, c, -1).transpose(0, 1)

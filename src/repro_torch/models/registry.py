@@ -1,7 +1,7 @@
 """Model registry, PyTorch port of ``src/repro/models/registry.py``: an
-``ArchConfig`` bound to its stack as a uniform bundle for the launchers,
-the serving engine and the tests.  Decoder-only configs; encoder-decoder
-configs wait for ROADMAP Queue 1 item 14 and raise.
+``ArchConfig`` bound to its stack (decoder-only, or encoder-decoder when
+``encoder_layers > 0``) as a uniform bundle for the launchers, the
+serving engine and the tests.
 """
 from __future__ import annotations
 
@@ -9,7 +9,7 @@ import dataclasses
 from typing import Callable
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 __all__ = ["ModelBundle", "get_model"]
 
@@ -17,7 +17,7 @@ __all__ = ["ModelBundle", "get_model"]
 @dataclasses.dataclass(frozen=True)
 class ModelBundle:
     cfg: ArchConfig
-    init: Callable               # (generator=0, device="cuda") -> LM
+    init: Callable               # (generator=0, device="cuda") -> module
     forward: Callable            # (model, batch, last_only=False)
     #                              -> (logits, aux)
     loss_fn: Callable            # (model, batch) -> scalar
@@ -25,13 +25,30 @@ class ModelBundle:
     #                               device="cuda") -> state
     decode_step: Callable        # (model, tokens, state) -> (logits, state)
     is_encdec: bool
-    decode_hidden: Callable      # -> (normed hidden (B, 1, d), state)
-    prefill_chunk: Callable      # (model, tokens (B, C), state, start, valid)
-    #                              -> (h (B, C, d), state)
+    # Serving fast path (decoder-only; None for encoder-decoder models):
+    decode_hidden: Callable | None = None  # -> (normed hidden (B, 1, d),
+    #                                           state)
+    prefill_chunk: Callable | None = None  # (model, tokens (B, C), state,
+    #                                  start, valid) -> (h (B, C, d), state)
 
 
 def get_model(cfg: ArchConfig) -> ModelBundle:
-    transformer.check_supported(cfg)
+    if cfg.encoder_layers > 0:
+        # as the reference's bundle: max_len is the source length
+        return ModelBundle(
+            cfg=cfg,
+            init=lambda generator=0, device="cuda": encdec.init(
+                cfg, generator, device),
+            forward=lambda m, batch, last_only=False: encdec.forward(
+                cfg, m, batch, last_only),
+            loss_fn=lambda m, batch: encdec.loss_fn(cfg, m, batch),
+            init_decode_state=lambda batch, max_len, per_slot=False,
+            device="cuda": encdec.init_decode_state(cfg, batch, max_len,
+                                                    device=device),
+            decode_step=lambda m, tokens, state: encdec.decode_step(
+                cfg, m, tokens, state),
+            is_encdec=True,
+        )
     return ModelBundle(
         cfg=cfg,
         init=lambda generator=0, device="cuda": transformer.init(

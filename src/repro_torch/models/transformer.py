@@ -1,10 +1,12 @@
 """Decoder-only transformer stack, PyTorch port of
-``src/repro/models/transformer.py``: dense (GQA), SSM (RWKV-6) and hybrid
-(RG-LRU + local attention) layer patterns.
+``src/repro/models/transformer.py``: dense (GQA), MoE, SSM (RWKV-6),
+hybrid (RG-LRU + local attention) layer patterns, and early-fusion VLM
+inputs.
 
 The parameters live in an ``LM`` module: ``embed``, ``final_norm``,
-``head`` and ``layers``, a ``ModuleList`` of one ``Block`` per layer in
-the reference's order (its pattern groups, then its remainder layers).
+``head``, ``patch_proj`` (``fuse_patches`` configs only) and ``layers``,
+a ``ModuleList`` of one ``Block`` per layer in the reference's order
+(its pattern groups, then its remainder layers).
 Each ``Block`` mirrors the reference's nested parameter dict key for key
 (``block.attn.wq``, ``block.time.mu``, ...), so that
 ``convert.lm_params_from_reference`` is a walk over the reference's
@@ -22,8 +24,13 @@ A decode state is ``{"length": ..., "layers": [one state per layer]}``;
 ``length`` is a Python int (uniform batch) or a per-row ``(B,)`` int32
 tensor (slot serving).  KV caches are updated in place.  Parameters
 carry no gradient: the train path waits for ROADMAP Queue 1 item 15.
-MoE blocks (``n_experts > 0``), early-fusion VLM inputs
-(``fuse_patches``) and encoder-decoder models wait for item 14.
+
+``batch``: {"tokens" (B, S), "labels" (B, S)}; VLM fusion adds
+{"patch_embeds" (B, P, d), "patch_mask" (B, S) bool}: masked positions
+take the projected patch embeddings, in order (early fusion).  An
+attention block of an MoE config (``n_experts > 0``) has an MoE ``ffn``
+(``models/moe.py``), whose load-balancing losses ``forward`` sums into
+its ``aux``.  Encoder-decoder configs are ``models/encdec.py``'s.
 """
 from __future__ import annotations
 
@@ -34,13 +41,14 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models import rglru as G
 from repro_torch.models import rwkv6 as R
 
 __all__ = ["LM", "Block", "init", "from_trees", "forward", "loss_fn",
            "init_decode_state", "decode_step", "decode_hidden",
            "prefill_chunk", "block_apply", "embed", "layer_kinds",
-           "attn_config", "rwkv_config", "rglru_config", "check_supported"]
+           "attn_config", "rwkv_config", "rglru_config", "moe_config"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -48,19 +56,6 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 
 def _dt(name: str) -> torch.dtype:
     return _DTYPES[name]
-
-
-def check_supported(cfg: ArchConfig) -> None:
-    """Raise for the parts of the reference's zoo the port lacks."""
-    if cfg.encoder_layers > 0:
-        raise NotImplementedError("encoder-decoder models are not ported yet "
-                                  "(ROADMAP Queue 1 item 14)")
-    if cfg.n_experts > 0:
-        raise NotImplementedError("MoE blocks (n_experts > 0) are not ported "
-                                  "yet (ROADMAP Queue 1 item 14)")
-    if cfg.fuse_patches:
-        raise NotImplementedError("early-fusion VLM inputs (fuse_patches) are "
-                                  "not ported yet (ROADMAP Queue 1 item 14)")
 
 
 def layer_kinds(cfg: ArchConfig) -> tuple[str, ...]:
@@ -90,6 +85,13 @@ def rwkv_config(cfg: ArchConfig) -> R.RWKVConfig:
 def rglru_config(cfg: ArchConfig) -> G.RGLRUConfig:
     impl = "pallas" if cfg.rec_impl == "pallas" else "scan"
     return G.RGLRUConfig(d_model=cfg.d_model, d_rnn=cfg.d_rnn, impl=impl)
+
+
+def moe_config(cfg: ArchConfig) -> M.MoEConfig:
+    return M.MoEConfig(d_model=cfg.d_model, d_ff=cfg.d_ff,
+                       n_experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                       capacity_factor=cfg.capacity_factor,
+                       mlp_variant=cfg.mlp_variant)
 
 
 def _attn_cfg(cfg: ArchConfig) -> A.AttnConfig:
@@ -123,25 +125,31 @@ class Block(Params):
 
 
 class LM(nn.Module):
-    """The decoder's parameters: embedding, layers, final norm and head."""
+    """The decoder's parameters: embedding, layers, final norm and head,
+    and the patch projection of a fusion config."""
 
     def __init__(self, embed: torch.Tensor, final_norm: torch.Tensor,
-                 head: torch.Tensor, blocks: list[Block]):
+                 head: torch.Tensor, blocks: list[Block],
+                 patch_proj: torch.Tensor | None = None):
         super().__init__()
         self.embed = nn.Parameter(embed, requires_grad=False)
         self.final_norm = nn.Parameter(final_norm, requires_grad=False)
         self.head = nn.Parameter(head, requires_grad=False)
+        if patch_proj is not None:
+            self.patch_proj = nn.Parameter(patch_proj, requires_grad=False)
         self.layers = nn.ModuleList(blocks)
 
 
 def _block_init(cfg: ArchConfig, kind: str, gen, dtype) -> dict:
     dev = gen.device
     if kind == "attn":
+        ffn = M.moe_init(gen, moe_config(cfg), dtype) if cfg.n_experts \
+            else L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.mlp_variant,
+                            dtype)
         return {"ln1": L.rms_norm_init(cfg.d_model, dtype, dev),
                 "attn": A.attn_init(gen, _attn_cfg(cfg), dtype),
                 "ln2": L.rms_norm_init(cfg.d_model, dtype, dev),
-                "ffn": L.mlp_init(gen, cfg.d_model, cfg.d_ff,
-                                  cfg.mlp_variant, dtype)}
+                "ffn": ffn}
     if kind == "rec":
         return {"ln1": L.rms_norm_init(cfg.d_model, dtype, dev),
                 "rec": G.rglru_block_init(gen, rglru_config(cfg), dtype),
@@ -154,14 +162,17 @@ def _block_init(cfg: ArchConfig, kind: str, gen, dtype) -> dict:
 
 
 def from_trees(cfg: ArchConfig, top: dict, blocks: list[dict]) -> LM:
-    """An ``LM`` from tensors: ``top`` holds ``embed``, ``final_norm`` and
-    ``head``; ``blocks`` one parameter dict per layer, in layer order."""
-    check_supported(cfg)
+    """An ``LM`` from tensors: ``top`` holds ``embed``, ``final_norm``,
+    ``head`` and, for a fusion config, ``patch_proj``; ``blocks`` one
+    parameter dict per layer, in layer order."""
+    if cfg.encoder_layers > 0:
+        raise ValueError("an encoder-decoder config is models/encdec.py's")
     kinds = layer_kinds(cfg)
     if len(blocks) != len(kinds):
         raise ValueError(f"{len(blocks)} layer trees for {len(kinds)} layers")
     return LM(top["embed"], top["final_norm"], top["head"],
-              [Block(kind, tree) for kind, tree in zip(kinds, blocks)])
+              [Block(kind, tree) for kind, tree in zip(kinds, blocks)],
+              top["patch_proj"] if cfg.fuse_patches else None)
 
 
 def init(cfg: ArchConfig, generator: torch.Generator | int = 0,
@@ -169,7 +180,6 @@ def init(cfg: ArchConfig, generator: torch.Generator | int = 0,
     """Random parameters, drawn on the device from ``generator`` (a seed
     makes one there).  The draws differ from the reference's ``jax.random``
     ones; the distributions are the reference's."""
-    check_supported(cfg)
     if isinstance(generator, int):
         dev = resolve_device(device)
         generator = torch.Generator(device=dev).manual_seed(generator)
@@ -178,6 +188,9 @@ def init(cfg: ArchConfig, generator: torch.Generator | int = 0,
            "final_norm": L.rms_norm_init(cfg.d_model, dtype,
                                          generator.device),
            "head": L.dense_init(generator, cfg.d_model, cfg.vocab, dtype)}
+    if cfg.fuse_patches:
+        top["patch_proj"] = L.dense_init(generator, cfg.d_model, cfg.d_model,
+                                         dtype)
     blocks = [_block_init(cfg, kind, generator, dtype)
               for kind in layer_kinds(cfg)]
     return from_trees(cfg, top, blocks)
@@ -187,24 +200,30 @@ def init(cfg: ArchConfig, generator: torch.Generator | int = 0,
 # Blocks: train / prefill, decode step, chunked prefill
 # ---------------------------------------------------------------------------
 
-def _ffn(cfg: ArchConfig, block, h):
-    return h + L.mlp_apply(block.ffn, L.rms_norm(h, block.ln2),
-                           cfg.mlp_variant)
+def _ffn(cfg: ArchConfig, block, h, moe: bool = False):
+    """``h`` plus the block's feed-forward of ``ln2(h)``, and its aux loss
+    (0 but for an MoE ``ffn``, which only attention blocks have)."""
+    hn = L.rms_norm(h, block.ln2)
+    if moe and cfg.n_experts:
+        f, aux = M.moe_apply(block.ffn, moe_config(cfg), hn)
+        return h + f, aux
+    return h + L.mlp_apply(block.ffn, hn, cfg.mlp_variant), 0.0
 
 
 def block_apply(cfg: ArchConfig, kind: str, block, h: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
-    """Training / prefill block (fresh recurrent state)."""
+                positions: torch.Tensor
+                ) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """Training / prefill block (fresh recurrent state): (h, aux loss)."""
     if kind == "attn":
         h = h + A.attention(block.attn, _attn_cfg(cfg),
                             L.rms_norm(h, block.ln1), positions)
-        return _ffn(cfg, block, h)
+        return _ffn(cfg, block, h, True)
     if kind == "rec":
         r, _ = G.rglru_block_apply(block.rec, rglru_config(cfg),
                                    L.rms_norm(h, block.ln1))
         return _ffn(cfg, block, h + r)
     if kind == "rwkv":
-        return R.rwkv_block_apply(block, rwkv_config(cfg), h)[0]
+        return R.rwkv_block_apply(block, rwkv_config(cfg), h)[0], 0.0
     raise ValueError(kind)
 
 
@@ -228,11 +247,11 @@ def _block_step(cfg: ArchConfig, kind: str, block, h, state, length):
     if kind == "attn":
         a, cache = A.decode_step(block.attn, _attn_cfg(cfg),
                                  L.rms_norm(h, block.ln1), state, length)
-        return _ffn(cfg, block, h + a), cache
+        return _ffn(cfg, block, h + a, True)[0], cache
     if kind == "rec":
         r, st = G.rglru_block_step(block.rec, rglru_config(cfg),
                                    L.rms_norm(h, block.ln1), state)
-        return _ffn(cfg, block, h + r), st
+        return _ffn(cfg, block, h + r)[0], st
     if kind == "rwkv":
         return R.rwkv_block_step(block, rwkv_config(cfg), h, state)
     raise ValueError(kind)
@@ -248,11 +267,11 @@ def _block_chunk(cfg: ArchConfig, kind: str, block, h, state, start, valid):
     if kind == "attn":
         a, cache = A.decode_chunk(block.attn, _attn_cfg(cfg),
                                   L.rms_norm(h, block.ln1), state, start)
-        return _ffn(cfg, block, h + a), cache
+        return _ffn(cfg, block, h + a, True)[0], cache
     if kind == "rec":
         r, st = G.rglru_block_apply(block.rec, rglru_config(cfg),
                                     L.rms_norm(h, block.ln1), state, valid)
-        return _ffn(cfg, block, h + r), st
+        return _ffn(cfg, block, h + r)[0], st
     if kind == "rwkv":
         return R.rwkv_block_apply(block, rwkv_config(cfg), h, state, valid)
     raise ValueError(kind)
@@ -262,26 +281,44 @@ def _block_chunk(cfg: ArchConfig, kind: str, block, h, state, start, valid):
 # Forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def embed(cfg: ArchConfig, model: LM, tokens: torch.Tensor) -> torch.Tensor:
-    """Token embeddings in the activation dtype."""
-    return model.embed[tokens.long()].to(_dt(cfg.act_dtype))
+def embed(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
+          patch_embeds: torch.Tensor | None = None,
+          patch_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token embeddings in the activation dtype.  A fusion config given
+    ``patch_embeds (B, P, d)`` and ``patch_mask (B, S)`` puts the
+    projected patches at the masked positions, in order: the j-th masked
+    position of a row takes patch ``min(j, P - 1)``."""
+    h = model.embed[tokens.long()].to(_dt(cfg.act_dtype))
+    if cfg.fuse_patches and patch_embeds is not None:
+        pe = L.mm(patch_embeds.to(h.dtype), model.patch_proj)
+        mask = patch_mask.bool()
+        idx = torch.cumsum(mask.int(), dim=1) - 1
+        idx = idx.clamp(0, pe.shape[1] - 1).long()
+        gathered = torch.gather(pe, 1, idx[..., None].expand(
+            -1, -1, pe.shape[-1]))
+        h = torch.where(mask[..., None], gathered, h)
+    return h
 
 
 def forward(cfg: ArchConfig, model: LM, batch: dict, last_only: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """``batch["tokens"] (B, S)`` -> (logits, aux).  ``last_only=True``
+    """``batch["tokens"] (B, S)`` (and a fusion config's
+    ``patch_embeds``, ``patch_mask``) -> (logits, aux): aux is the sum of
+    the MoE layers' load-balancing losses, fp32.  ``last_only=True``
     computes logits for the final position only (the serving prefill)."""
     tokens = batch["tokens"]
-    h = embed(cfg, model, tokens)
+    h = embed(cfg, model, tokens, batch.get("patch_embeds"),
+              batch.get("patch_mask"))
     b, s = tokens.shape
     positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for block in model.layers:
-        h = block_apply(cfg, block.kind, block, h, positions)
+        h, aux_l = block_apply(cfg, block.kind, block, h, positions)
+        aux = aux + aux_l
     if last_only:
         h = h[:, -1:, :]
     h = L.rms_norm(h, model.final_norm)
-    return L.mm(h, model.head), torch.zeros((), dtype=torch.float32,
-                                            device=h.device)
+    return L.mm(h, model.head), aux
 
 
 def loss_fn(cfg: ArchConfig, model: LM, batch: dict, aux_weight: float = 0.01

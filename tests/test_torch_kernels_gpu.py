@@ -822,7 +822,7 @@ class TestLMKernelsOnCard:
     """flash_attention, wkv_chunked and linear_scan against their plain
     versions on the card."""
 
-    @pytest.mark.parametrize("hd", [16, 64, 128, 256])
+    @pytest.mark.parametrize("hd", HEAD_DIMS)
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     def test_flash(self, cuda_device, hd, dtype):
         torch.manual_seed(hd)
