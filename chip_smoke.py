@@ -92,7 +92,23 @@ two-level protocol and the sharded paths:
        last wave against ``assign`` in fp32 (labels equal, affinity
        within 1e-5); ``train_mthfl(backend="shard_map")`` on 3i(b)'s
        layout, losses within 1e-5 x max(1, |loss|) of the fused path and
-       the same accuracies.  A failure to start NCCL fails the run.
+       the same accuracies.  A failure to start NCCL fails the run;
+  [3p] telemetry (``repro_torch.obs``) on the card: (a) the dense
+       protocol at full width with 256 users (the batched ``eigh`` of 256
+       Grams) with telemetry off, on and off again: R and the labels
+       bit-equal, nothing recorded while off, the span tree
+       ``oneshot.run`` > ``protocol.run`` > ``protocol.dispatch`` plus
+       ``cluster.hac`` and ``cluster.cut``, ``kernel_calls`` and
+       ``dispatch_count`` equal to the run's launches by tuning family,
+       no ``retrace_count`` (no kernel build), and the dispatch span at
+       least as long as the same call by CUDA events (the span
+       synchronises); (b) phase 3e's serving cell with events on: the
+       events by kind, ``assign_latency_us`` counting every wave, the
+       same accuracies and re-cluster waves as phase 3e; (c) the
+       overheads beside the reference's contract (<= 5% on, <= 0.5%
+       off), reported only; (d) ``launch.obs profile`` over
+       ``launch.membership --quick`` in a process of its own: every span
+       name in the exported trace (its kernel events counted only).
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -140,8 +156,10 @@ bf16 compute to 2^-8 x max of the plain chunk form with the same bf16
 roundings (its gap to the fp32 oracle at most twice the plain chunk
 form's), S from 1 to 200 and strong decays; phase [4] times both
 compute dtypes at the serving chunk, with device times, and holds bf16
-compute's gap to the fp32 oracle to 2^-8 x max and to twice the plain
-chunk form's.  ``nn_chain``
+compute on 8 input draws (the phase's own and 7 from a generator of
+their own, each printed): within 2^-8 of the plain chunk form, out and
+state, and its gap to the fp32 oracle within twice the plain chunk
+form's (the plain chunk form itself misses 2^-8 x max on one draw).  ``nn_chain``
 caches every live row's nearest neighbour: phase [2] holds its merges,
 heights and step count to the plain loop bit for bit and its counters
 (iterations, rows rescanned) to the plain model of the cache on random,
@@ -174,6 +192,7 @@ import contextlib
 import copy
 import dataclasses
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -296,6 +315,18 @@ EIGH_GRAMS = 64
 # the bf16 rounding moves the result by 2e-3 to 4e-3 at d = 512, and
 # phase 2 requires that gap to exceed 10x the limit.
 ASSIGN_BF16_TOL = 2e-5
+# wkv_chunked under bf16 compute against the fp32 oracle (phase 4): input
+# draws at the serving prefill's shape, the first the phase's own, the
+# rest from a generator of their own.
+WKV_DRAWS, WKV_DRAW_SEED = 8, SEED + 1
+# Telemetry (phase 3p): the dense protocol at full width with fewer users
+# (the batched eigh of OBS_USERS Grams), and the assign path's overhead
+# timed as the reference's benchmarks/bench_obs.py does (strictly
+# alternating off/on calls, median of each, best of the trials; the
+# disabled call bundle timed alone).
+OBS_USERS = 256
+OBS_PAIRS, OBS_TRIALS, OBS_BUNDLE_CALLS = 30, 2, 20_000
+OBS_PIECE_CALLS = 200
 
 
 class SmokeFailure(RuntimeError):
@@ -823,8 +854,10 @@ def main() -> int:
 
     import torch.distributed as tdist
 
+    from repro_torch import obs
     from repro_torch.core import clustering as clu
     from repro_torch.core import distributed as mdist
+    from repro_torch.core import engine as protocol_engine
     from repro_torch.core import similarity as sim
     from repro_torch.core.cluster_engine import (ClusterConfig, ClusterEngine,
                                                  cut_device,
@@ -3029,6 +3062,297 @@ def main() -> int:
     del raw_users
     phase_done("phase 3l")
 
+    # -- Phase 3p: telemetry on the card ------------------------------------
+    print(f"[3p] telemetry (repro_torch.obs) on the card: the dense protocol "
+          f"N={OBS_USERS} x n={N_SAMPLES} x d={DIM} off, on and off again; "
+          f"phase 3e's serving cell with events on; the overheads; "
+          f"launch.obs profile")
+    obs.disable()
+    obs.reset()
+    feats_p, tasks_p = make_task_feature_mixture(OBS_USERS, N_SAMPLES, DIM,
+                                                 TASKS, seed=SEED)
+    x_p = torch.from_numpy(feats_p).to(dev)
+    del feats_p
+
+    def kernel_calls_match(launches, what):
+        """``kernel_calls{kernel=..}`` and ``dispatch_count`` against the
+        run's launch counts, by the reference's tuning family."""
+        want = {}
+        for name, n in launches.items():
+            family = dispatch.FAMILIES.get(name)
+            if family is not None and n:
+                want[family] = want.get(family, 0) + n
+        got = {f: obs.counter_value("kernel_calls", kernel=f)
+               for f in sorted(set(dispatch.FAMILIES.values()))}
+        got = {f: n for f, n in got.items() if n}
+        require(got == want, f"{what}: kernel_calls {got} differ from the "
+                f"launches by family {want}")
+        require(obs.counter_value("dispatch_count") == sum(want.values()),
+                f"{what}: dispatch_count "
+                f"{obs.counter_value('dispatch_count')} != "
+                f"{sum(want.values())} launches")
+        return want
+
+    # (a) One CUDA-event pair around each dense protocol call, inside the
+    # protocol.dispatch span.
+    dense_events = []
+    plain_dense = protocol_engine._dense_protocol
+
+    def dense_with_events(*args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = plain_dense(*args, **kw)
+        end.record()
+        dense_events.append((start, end))
+        return out
+
+    def dense_run():
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t = time.perf_counter()
+        with mock.patch.object(protocol_engine, "_dense_protocol",
+                               dense_with_events):
+            r = one_shot_clustering(x_p, TASKS,
+                                    cfg=sim.SimilarityConfig(top_k=TOP_K),
+                                    cluster_cfg=ClusterConfig(backend="torch"),
+                                    device=dev)
+        lab = r.labels.cpu()
+        torch.cuda.synchronize()
+        return r, lab, time.perf_counter() - t, dict(dispatch.LAUNCHES)
+
+    res_off, lab_off, wall_off, _ = dense_run()
+    require(obs.snapshot() == {"counters": {}, "gauges": {},
+                               "histograms": {}}
+            and obs.trace_records() == [] and obs.events() == [],
+            "3p(a): telemetry off recorded something")
+    obs.enable()
+    res_on, lab_on, wall_on, launches_on = dense_run()
+    obs.disable()
+    recs_p = obs.trace_records()
+    snap_p = obs.snapshot()
+    tree_p = obs.format_tree(recs_p)
+    res_off2, lab_off2, wall_off2, _ = dense_run()
+    require(obs.snapshot() == snap_p and obs.trace_records() == recs_p,
+            "3p(a): telemetry off again recorded something")
+    print("  trace of the run with telemetry on:")
+    for line in tree_p.splitlines():
+        print("    " + line)
+    print(f"  launches {launches_on}; counters {snap_p['counters']}")
+    require(tuple(res_on.similarity.shape) == (OBS_USERS, OBS_USERS)
+            and bool(torch.isfinite(res_on.similarity).all()),
+            "3p(a): R is not a finite (N, N) matrix")
+    same_p = (torch.equal(res_off.similarity, res_on.similarity)
+              and torch.equal(lab_off, lab_on)
+              and torch.equal(res_off2.similarity, res_on.similarity)
+              and torch.equal(lab_off2, lab_on))
+    require(same_p, "3p(a): R or the labels differ between telemetry off "
+            "and on")
+    names_p = [r["name"] for r in recs_p]
+    require(sorted(names_p) == sorted(
+        ["oneshot.run", "protocol.run", "protocol.dispatch", "cluster.hac",
+         "cluster.cut"]), f"3p(a): spans {names_p}")
+    span_p = {r["name"]: r for r in recs_p}
+    root_id = span_p["oneshot.run"]["id"]
+    require(span_p["oneshot.run"]["parent"] == 0
+            and span_p["protocol.run"]["parent"] == root_id
+            and span_p["protocol.dispatch"]["parent"]
+            == span_p["protocol.run"]["id"]
+            and span_p["cluster.hac"]["parent"] == root_id
+            and span_p["cluster.cut"]["parent"] == root_id,
+            "3p(a): the span tree is not oneshot.run > protocol.run > "
+            "protocol.dispatch, cluster.hac, cluster.cut")
+    require(snap_p["counters"].get("protocol.dispatches{mode=dense}") == 1
+            and snap_p["counters"].get("cluster.hac_runs") == 1,
+            "3p(a): protocol.dispatches or cluster.hac_runs is not 1")
+    families_p = kernel_calls_match(launches_on, "3p(a)")
+    require(obs.counter_value("retrace_count") == 0,
+            "3p(a): the kernel library was built again with telemetry on")
+    start_p, end_p = dense_events[1]
+    event_ms_p = start_p.elapsed_time(end_p)
+    disp_ms_p = span_p["protocol.dispatch"]["dur_us"] / 1e3
+    require(disp_ms_p >= event_ms_p, f"3p(a): protocol.dispatch lasted "
+            f"{disp_ms_p:.3f} ms by its span, under the {event_ms_p:.3f} ms "
+            f"of the same call by CUDA events: the span did not synchronise")
+    acc_p = clu.clustering_accuracy(lab_on.numpy(), tasks_p)
+    print(f"  R and labels bit-equal off / on / off; kernel_calls "
+          f"{families_p} equal the launches; retrace_count 0; "
+          f"protocol.dispatch {disp_ms_p:.3f} ms by its span, "
+          f"{event_ms_p:.3f} ms by CUDA events; accuracy {acc_p:.1%}")
+
+    # (b) Phase 3e's serving cell with events on.
+    serve_args_p = launch_membership.build_parser().parse_args(SERVING_ARGS)
+    obs.reset()
+    dispatch.reset_launches()
+    obs.enable()
+    t0 = time.perf_counter()
+    cell_p, served_p, (lam_p, v_p) = launch_membership.run_cell(
+        serve_args_p, serve_args_p.scenario, serve_args_p.arrivals,
+        verbose=False, return_state=True)
+    wall_cell_p = time.perf_counter() - t0
+    obs.disable()
+    launches_cell_p = dict(dispatch.LAUNCHES)
+    events_p = obs.events()
+    kinds_p = {}
+    for e in events_p:
+        kinds_p[e["kind"]] = kinds_p.get(e["kind"], 0) + 1
+    hist_p = obs.snapshot()["histograms"]["assign_latency_us"]
+    cell_3e = summary["paths"]["serving"]
+    print(f"  serving cell with events on: wall {wall_cell_p:.3f} s "
+          f"(phase 3e {cell_3e['wall_s']:.3f} s), events by kind "
+          f"{dict(sorted(kinds_p.items()))}, assign_latency_us count "
+          f"{hist_p['count']} (mean {hist_p['mean']:.1f} us), re-clusters "
+          f"at waves {cell_p['recluster_waves']} (phase 3e "
+          f"{cell_3e['recluster_waves']})")
+    print("  per-wave assign ms, events on "
+          + ", ".join(f"{t:.3f}" for t in cell_p["assign_ms"])
+          + "; phase 3e (off) "
+          + ", ".join(f"{t:.3f}" for t in cell_3e["assign_ms"]))
+    require(hist_p["count"] == serve_args_p.waves
+            and kinds_p.get("assign_wave") == serve_args_p.waves,
+            f"3p(b): assign_latency_us counted {hist_p['count']} and "
+            f"{kinds_p.get('assign_wave')} assign_wave events for "
+            f"{serve_args_p.waves} waves")
+    require(kinds_p.get("seed") == 1
+            and obs.counter_value("recluster_events")
+            == cell_p["n_reclusters"] == kinds_p.get("recluster", 0),
+            "3p(b): seed or re-cluster events disagree with the cell")
+    require(cell_p["accuracy_per_wave"] == cell_3e["accuracy_per_wave"]
+            and cell_p["recluster_waves"] == cell_3e["recluster_waves"],
+            "3p(b): the serving cell with events on served differently")
+    kernel_calls_match(launches_cell_p, "3p(b)")
+
+    # (c) The overheads, beside the reference's contract (<= 5% on,
+    # <= 0.5% off; src/repro/obs/core.py).  Reported, not required.
+    def one_assign():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        served_p.assign(lam_p, v_p)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def median(xs):
+        xs = sorted(xs)
+        return 0.5 * (xs[(len(xs) - 1) // 2] + xs[len(xs) // 2])
+
+    one_assign()
+    with obs.scope(True):
+        one_assign()
+    best = None
+    for _ in range(OBS_TRIALS):
+        obs.reset()
+        offs, ons = [], []
+        for _ in range(OBS_PAIRS):
+            obs.disable()
+            offs.append(one_assign())
+            obs.enable()
+            ons.append(one_assign())
+        obs.disable()
+        trial = (median(ons) / median(offs) - 1.0, median(offs),
+                 median(ons))
+        best = trial if best is None or trial[0] < best[0] else best
+    t0 = time.perf_counter()
+    for _ in range(OBS_BUNDLE_CALLS):
+        obs.now()
+        with obs.span("bundle", backend="torch") as sp:
+            sp.sync(None)
+        if obs.enabled():
+            raise SmokeFailure("telemetry turned itself on")
+    bundle_s = (time.perf_counter() - t0) / OBS_BUNDLE_CALLS
+    # Where the enabled cost goes: each piece of the bookkeeping one
+    # assign() adds, timed alone as the wave is (ending in a sync), beside
+    # an empty call.
+    labels_p = served_p.assign(lam_p, v_p).labels
+
+    def timed(fn):
+        xs = []
+        for _ in range(OBS_PIECE_CALLS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            xs.append(time.perf_counter() - t)
+        return median(xs) * 1e6
+
+    def span_piece():
+        with obs.span("membership.assign", backend="torch") as sp:
+            sp.sync(labels_p)
+
+    def record_piece():
+        t = obs.now()
+        obs.observe("assign_latency_us", (obs.now() - t) * 1e6)
+        obs.count("membership.assign_waves")
+        obs.event("assign_wave", n=128, n_unassigned=0, backend="torch")
+
+    with obs.scope(True):
+        pieces_us = dict(empty=timed(lambda: None), span=timed(span_piece),
+                         records=timed(record_piece),
+                         labels_to_host=timed(
+                             lambda: labels_p.detach().cpu().numpy()))
+    obs.reset()
+    dense_over = wall_on / (0.5 * (wall_off + wall_off2)) - 1.0
+    print(f"  overheads (reported, not required): dense protocol wall off "
+          f"{wall_off:.4f} s, on {wall_on:.4f} s, off again "
+          f"{wall_off2:.4f} s ({dense_over:+.2%} on); assign path "
+          f"(B={v_p.shape[0]}, T={served_p.state.n_clusters}, d={DIM}, "
+          f"{OBS_PAIRS} alternating pairs, best of {OBS_TRIALS}): off "
+          f"{best[1] * 1e3:.4f} ms, on {best[2] * 1e3:.4f} ms "
+          f"({best[0]:+.2%}; contract <= 5%); the disabled call bundle "
+          f"{bundle_s * 1e9:.1f} ns = {bundle_s / best[1]:.4%} of a wave "
+          f"(contract <= 0.5%); the enabled pieces alone, us a call ending "
+          f"in a sync: " + ", ".join(f"{k} {v:.1f}"
+                                      for k, v in pieces_us.items()))
+
+    # (d) launch.obs profile over the membership launcher, in a process
+    # of its own.  The kernel events are counted, not required: a
+    # profiler session can lose its first kernel events (PERF.md).
+    src_dir = str(Path(__file__).resolve().parent / "src")
+    with tempfile.TemporaryDirectory() as logdir:
+        prof = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.obs", "profile",
+             "--logdir", logdir, "--", "repro_torch.launch.membership",
+             "--quick"], capture_output=True, text=True, timeout=600,
+            env=dict(os.environ, PYTHONPATH=src_dir))
+        require(prof.returncode == 0, f"3p(d): launch.obs profile failed "
+                f"(rc {prof.returncode}):\n{prof.stdout[-2000:]}"
+                f"{prof.stderr[-2000:]}")
+        traces_p = sorted(Path(logdir).glob("trace_*.json"))
+        require(len(traces_p) == 1, f"3p(d): {len(traces_p)} trace files")
+        trace_events = json.loads(traces_p[0].read_text())["traceEvents"]
+    trace_names = {e.get("name") for e in trace_events}
+    need_p = {"oneshot.run", "protocol.run", "protocol.dispatch",
+              "cluster.hac", "cluster.cut", "membership.assign",
+              "membership.admit", "membership.evict"}
+    n_kernel_events = sum(1 for e in trace_events
+                          if e.get("cat") == "kernel")
+    print(f"  launch.obs profile -- repro_torch.launch.membership --quick: "
+          f"{len(trace_events)} trace events, spans "
+          f"{sorted(need_p & trace_names)}, {n_kernel_events} kernel events "
+          f"(counted, not required)")
+    require(need_p <= trace_names, f"3p(d): spans missing from the "
+            f"profile: {sorted(need_p - trace_names)}")
+    summary["telemetry"] = dict(
+        dense=dict(users=OBS_USERS, wall_off_s=wall_off, wall_on_s=wall_on,
+                   wall_off_again_s=wall_off2, same_bits=same_p,
+                   launches=launches_on, kernel_calls=families_p,
+                   dispatch_span_ms=disp_ms_p, dispatch_event_ms=event_ms_p,
+                   spans=names_p, accuracy=acc_p),
+        serving=dict(wall_s=wall_cell_p, events=kinds_p,
+                     assign_latency_count=hist_p["count"],
+                     assign_latency_mean_us=hist_p["mean"],
+                     assign_ms=cell_p["assign_ms"],
+                     recluster_waves=cell_p["recluster_waves"]),
+        overheads=dict(dense_on=dense_over, assign_on=best[0],
+                       assign_off_ms=best[1] * 1e3,
+                       assign_on_ms=best[2] * 1e3,
+                       disabled_bundle_ns=bundle_s * 1e9,
+                       disabled_frac=bundle_s / best[1],
+                       enabled_pieces_us=pieces_us),
+        profile=dict(events=len(trace_events),
+                     kernel_events=n_kernel_events))
+    del x_p, res_off, res_on, res_off2, served_p
+    phase_done("phase 3p")
+
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "
           "shapes (CUDA events)")
@@ -3634,17 +3958,11 @@ def main() -> int:
                                           compute_dtype=cd)
         name = f"wkv ({wb}, {ws}, {wh}, {whd}) bf16, {cd} compute"
         if cd == "bf16":
+            # The gaps to the fp32 oracle are held below, on every draw.
             rel = rel_check(name, out.float(), plain, 2 ** -8)
             rel_st = rel_check(f"{name} state", new_st, plain_st, 2 ** -8)
-            rel_oracle = rel_check(f"{name} against the fp32 oracle",
-                                   out.float(), want, 2 ** -8)
-            # and, as phase 2 holds it, at most twice the plain chunk
-            # form's gap (its output rounded as the kernel's is)
-            plain_gap = max_err(torch, plain.to(out.dtype).float(),
-                                want) / float(want.abs().max())
-            require(rel_oracle <= max(2 * plain_gap, 1e-5),
-                    f"{name}: gap to the fp32 oracle {rel_oracle:.3e} is "
-                    f"over twice the plain chunk form's {plain_gap:.3e}")
+            rel_oracle = max_err(torch, out.float(), want) / float(
+                want.abs().max())
             b, by, b32 = assign_bound_ms(0.0, 4.0 * whd * whd * n_tok,
                                          "bf16", w_bytes)
         else:
@@ -3678,6 +3996,67 @@ def main() -> int:
               f"{wkv_rows[cd]['plain_oracle_rel_err']:.3e}, its output "
               f"rounded to bf16 "
               f"{wkv_rows[cd]['plain_bf16_oracle_rel_err']:.3e})")
+    # bf16 compute against the fp32 oracle over WKV_DRAWS input draws: the
+    # draw above and WKV_DRAWS - 1 from a generator of their own (so that
+    # no other check's inputs move).  On every draw the kernel is held to
+    # the plain chunk form at 2^-8 (out and state), and its gap to the
+    # oracle to at most twice the plain chunk form's (its output rounded
+    # to bf16, as the kernel's is: the reference's own bf16 rounding).
+    # No absolute bar on that gap: on an H100 the plain chunk form itself
+    # missed 2^-8 on the fifth of these draws (3.970e-3 x max), so such a
+    # bar tests the reference's bf16 arithmetic, not the port.  Every
+    # draw is printed before any bar is applied.
+    wkv_gen = torch.Generator(device="cpu").manual_seed(WKV_DRAW_SEED)
+
+    def wkv_draw():
+        def rn(*shape):
+            return torch.randn(*shape, generator=wkv_gen).to(dev)
+
+        r_, k_, v_ = (rn(wb, ws, wh, whd).to(torch.bfloat16)
+                      for _ in range(3))
+        return (r_, k_, v_, -torch.exp(rn(wb, ws, wh, whd)), rn(wh, whd),
+                rn(wb, wh, whd, whd))
+
+    draws = [(wr, wk, wv, wlogw, wu, wst)] + [wkv_draw()
+                                              for _ in range(WKV_DRAWS - 1)]
+    wkv_draw_rows = []
+    for i, args in enumerate(draws):
+        out, new_st = wkv_chunked(*args, compute_dtype="bf16")
+        plain, plain_st = wkv_chunked_ref(*args, compute_dtype="bf16")
+        want, _ = wkv_ref(*args)
+        scale = float(want.abs().max())
+        row = dict(
+            oracle_rel_err=max_err(torch, out.float(), want) / scale,
+            plain_bf16_oracle_rel_err=max_err(
+                torch, plain.to(out.dtype).float(), want) / scale,
+            plain_rel_err=max_err(torch, out.float(), plain) / float(
+                plain.abs().max()),
+            state_rel_err=max_err(torch, new_st, plain_st) / float(
+                plain_st.abs().max()),
+            finite=bool(torch.isfinite(out).all()
+                        and torch.isfinite(new_st).all()))
+        row["ratio"] = row["oracle_rel_err"] / max(
+            row["plain_bf16_oracle_rel_err"], 1e-30)
+        wkv_draw_rows.append(row)
+        print(f"  wkv bf16 draw {i}: kernel {row['oracle_rel_err']:.3e} x "
+              f"max of the fp32 oracle, plain chunk form rounded to bf16 "
+              f"{row['plain_bf16_oracle_rel_err']:.3e}, ratio "
+              f"{row['ratio']:.3f}; kernel against the plain chunk form: "
+              f"out {row['plain_rel_err']:.3e}, state "
+              f"{row['state_rel_err']:.3e}")
+    for i, row in enumerate(wkv_draw_rows):
+        require(row["finite"], f"wkv bf16 draw {i}: non-finite output")
+        require(row["plain_rel_err"] <= 2 ** -8
+                and row["state_rel_err"] <= 2 ** -8,
+                f"wkv bf16 draw {i}: kernel disagrees with the plain chunk "
+                f"form (out {row['plain_rel_err']:.3e}, state "
+                f"{row['state_rel_err']:.3e} > 2^-8)")
+        require(row["oracle_rel_err"] <= max(
+                    2 * row["plain_bf16_oracle_rel_err"], 1e-5),
+                f"wkv bf16 draw {i}: gap to the fp32 oracle "
+                f"{row['oracle_rel_err']:.3e} is over twice the plain chunk "
+                f"form's {row['plain_bf16_oracle_rel_err']:.3e}")
+    wkv_rows["bf16"]["draws"] = wkv_draw_rows
     kernels.append(dict(
         name="wkv_chunked", route="cuda",
         source="src/repro_torch/kernels/csrc/recurrent_scan.cu",

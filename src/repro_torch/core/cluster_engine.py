@@ -12,7 +12,9 @@ On a CUDA device the whole NN-chain loop is one persistent kernel
 (``kernels/linkage``); on the CPU it is the plain Python loop over the
 fused step.  For the reducible linkages (single / complete / average)
 the reciprocal-NN merges are exactly the greedy dendrogram, so the labels
-equal the reference HAC's up to tie order.
+equal the reference HAC's up to tie order.  Telemetry: the ``cluster.hac``
+span (``backend``, ``linkage``) and ``cluster.hac_runs`` counter, and the
+``cluster.cut`` span (``n_clusters``), as in the reference.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import clustering as clu
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.kernels.linkage import ops as lk_ops
@@ -158,6 +161,14 @@ class ClusterEngine:
 
     def hac(self, similarity) -> clu.Dendrogram | DeviceDendrogram:
         """Agglomerative clustering -> dendrogram (host or device form)."""
+        with obs.span("cluster.hac", backend=self.cfg.backend,
+                      linkage=self.cfg.linkage):
+            dend = self._hac(similarity)
+        if obs.enabled():
+            obs.count("cluster.hac_runs")
+        return dend
+
+    def _hac(self, similarity) -> clu.Dendrogram | DeviceDendrogram:
         if self.cfg.backend == "numpy":
             return clu.hac(_host(similarity), linkage=self.cfg.linkage)
         s = self._prepare(similarity)
@@ -178,11 +189,12 @@ class ClusterEngine:
 
     def cut(self, dend, n_clusters: int):
         """Dendrogram -> labels; device dendrograms cut on their device."""
-        if isinstance(dend, clu.Dendrogram):
-            return clu.cut(dend, n_clusters)
-        self._check_n_clusters(n_clusters, dend.n_leaves)
-        return cut_device(dend.merge_rows, dend.heights, dend.n_leaves,
-                          n_clusters)
+        with obs.span("cluster.cut", n_clusters=n_clusters) as sp:
+            if isinstance(dend, clu.Dendrogram):
+                return clu.cut(dend, n_clusters)
+            self._check_n_clusters(n_clusters, dend.n_leaves)
+            return sp.sync(cut_device(dend.merge_rows, dend.heights,
+                                      dend.n_leaves, n_clusters))
 
     def labels(self, similarity, n_clusters: int):
         """HAC + cut.  numpy backend -> ``np.ndarray``; torch backend -> a

@@ -25,7 +25,14 @@ Mirrors the single-device paths of ``src/repro/core/engine.py``:
     (signatures, then relevance rows), and every rank gets the replicated
     ``R``.  The raw entry point shards the raw shards the same way.
 
-Everything stays on the engine's device.
+Everything stays on the engine's device.  Telemetry, as in the
+reference: ``run`` records the ``protocol.run`` span around the
+``protocol.dispatch`` span (``mode``, ``backend``, ``impl``,
+``n_users``; it synchronises the outputs) and counts
+``protocol.dispatches{mode=..}``; ``run_raw`` records
+``protocol.run_raw`` (``backend``, ``n_users``).  ``impl`` is ``"cuda"``
+where the hand-written kernels run and ``"torch"`` for their plain
+versions on the CPU.
 """
 from __future__ import annotations
 
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core import distributed as mdist
 from repro_torch.core import signature_engine as sig
 from repro_torch.core import similarity as sim
@@ -198,6 +206,23 @@ class ProtocolEngine:
         lam, v = sim.spectrum(grams, self._top_k(feats.shape[-1]))
         return lam, v, grams
 
+    @property
+    def impl(self) -> str:
+        """What computes the kernels' stages: ``"cuda"`` (the hand-written
+        kernels) or ``"torch"`` (their plain versions, on the CPU)."""
+        return "cuda" if self.device.type == "cuda" else "torch"
+
+    def _dispatch(self, mode: str, n_users: int, run):
+        """``run()`` inside the ``protocol.dispatch`` span, which
+        synchronises its outputs, then counts the dispatch."""
+        with obs.span("protocol.dispatch", mode=mode,
+                      backend=self.cfg.backend, impl=self.impl,
+                      n_users=n_users) as sp:
+            out = sp.sync(run())
+        if obs.enabled():
+            obs.count("protocol.dispatches", mode=mode)
+        return out
+
     def _protocol(self, features, n_valid):
         """Backend dispatch on any accepted input -> ``(r, R, lam, v, N,
         d)``; shard_map before landmarks and blockwise, as the reference's
@@ -207,13 +232,13 @@ class ProtocolEngine:
         feats, nv = self.prepare(features, n_valid)
         n_users, _, d = feats.shape
         if self.cfg.landmarks:
-            out = self._run_landmarks(feats, nv)
+            mode, run = "landmarks", lambda: self._run_landmarks(feats, nv)
         elif self.cfg.block_users:
-            out = self._run_blockwise(feats, nv)
+            mode, run = "blockwise", lambda: self._run_blockwise(feats, nv)
         else:
-            out = _dense_protocol(feats, nv, self._top_k(d),
-                                  self.cfg.eig_floor)
-        return (*out, n_users, d)
+            mode, run = "dense", lambda: _dense_protocol(
+                feats, nv, self._top_k(d), self.cfg.eig_floor)
+        return (*self._dispatch(mode, n_users, run), n_users, d)
 
     def _run_shard_map(self, features, n_valid):
         """Every rank holds the same full batch; only this rank's users
@@ -228,11 +253,14 @@ class ProtocolEngine:
                              f"{tuple(features.shape)}")
         n_users, _, d = features.shape
         rows = mdist.local_rows(n_users, group, self.cfg.mesh_axis)
-        feats, nv = self.prepare(
-            features[rows], None if n_valid is None else n_valid[rows])
-        out = _dense_protocol(feats, nv, self._top_k(d), self.cfg.eig_floor,
-                              group)
-        return (*out, n_users, d)
+
+        def run():
+            feats, nv = self.prepare(
+                features[rows], None if n_valid is None else n_valid[rows])
+            return _dense_protocol(feats, nv, self._top_k(d),
+                                   self.cfg.eig_floor, group)
+
+        return (*self._dispatch("shard_map", n_users, run), n_users, d)
 
     def _run_blockwise(self, feats: torch.Tensor, nv: torch.Tensor):
         n_users, n, d = feats.shape
@@ -307,7 +335,8 @@ class ProtocolEngine:
         return self.relevance_and_similarity(features, n_valid)[1]
 
     def run(self, features, n_valid=None) -> ProtocolResult:
-        r, big_r, lam, v, n_users, d = self._protocol(features, n_valid)
+        with obs.span("protocol.run", backend=self.cfg.backend):
+            r, big_r, lam, v, n_users, d = self._protocol(features, n_valid)
         return ProtocolResult(relevance=r, similarity=big_r,
                               n_users=n_users, d=d, top_k=self._top_k(d),
                               lam=lam, v=v)
@@ -371,22 +400,29 @@ class ProtocolEngine:
         n_users, _, m = raw.shape
         d_out = engine.out_dim(m)
         top_k = self._top_k(d_out)
-        group, rows = None, slice(None)
-        if self.cfg.backend == "shard_map":
-            # This rank's users only; Phi's parameters are rank 0's fit,
-            # broadcast, so every rank featurises with the same bits.
-            group = self._group()
-            rows = mdist.local_rows(n_users, group, self.cfg.mesh_axis)
-            params = engine.params_for(m)
-            for name in sorted(params):
-                dist.broadcast(params[name],
-                               src=dist.get_global_rank(group, 0),
-                               group=group)
-        grams = engine.accumulate_grams(raw[rows], nv[rows],
-                                        assume_full=full)
-        r, big_r, resid, lam, v = _raw_finish(grams, top_k,
-                                              self.cfg.eig_floor, engine,
-                                              group)
+        with obs.span("protocol.run_raw", backend=self.cfg.backend,
+                      n_users=n_users) as sp:
+            if self.cfg.backend == "shard_map":
+                # This rank's users only; Phi's parameters are rank 0's
+                # fit, broadcast, so every rank featurises with the same
+                # bits.  The per-rank body records no ingest span, as the
+                # reference's sharded body records none.
+                group = self._group()
+                rows = mdist.local_rows(n_users, group, self.cfg.mesh_axis)
+                params = engine.params_for(m)
+                for name in sorted(params):
+                    dist.broadcast(params[name],
+                                   src=dist.get_global_rank(group, 0),
+                                   group=group)
+                grams = engine._accumulate_grams(raw[rows], nv[rows],
+                                                 assume_full=full)
+            else:
+                group = None
+                grams = engine.accumulate_grams(raw, nv, assume_full=full)
+            r, big_r, resid, lam, v = _raw_finish(grams, top_k,
+                                                  self.cfg.eig_floor, engine,
+                                                  group)
+            sp.sync((r, big_r, lam, v))
         if engine.cfg.check:
             engine.verify_convergence(resid)
         return ProtocolResult(relevance=r, similarity=big_r,

@@ -34,8 +34,17 @@ statistics from one cluster's members at a time: the same sums in
 another fp32 order.  ``assign_sharded`` shards the directory's
 prototypes over the ranks of a ``torch.distributed`` mesh axis and
 gathers the wave's affinity columns (``_verdict_from_affinity`` gives the
-verdict from them).  The telemetry spans and events of the reference wait
-for ROADMAP Queue 1 item 12.
+verdict from them).
+
+Telemetry (``repro_torch.obs``), the reference's records by name: the
+``seed``, ``assign_wave``, ``admit``, ``evict``, ``drift_trip`` and
+``recluster`` events; the ``membership.assign``, ``membership.admit``,
+``membership.evict`` and ``membership.recluster`` spans; the
+``assign_latency_us`` histogram; the ``membership.assign_waves``,
+``membership.admits``, ``membership.evicts`` and ``recluster_events``
+counters; and the ``directory_bytes``, ``unassigned_frac`` and
+``proto_shift`` gauges.  ``assign_sharded`` records nothing, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -45,6 +54,7 @@ import math
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import distributed as mdist
 from repro_torch.core import similarity as sim
 from repro_torch.core.cluster_engine import ClusterConfig, ClusterEngine
@@ -409,6 +419,10 @@ class MembershipEngine:
             lam=lam_t, v=v_t, labels=lab_t, valid=valid, protos=table,
             counts=counts, protos0=table, n_clusters=n_clusters,
             proto_scales=scales, proto0_scales=scales)
+        if obs.enabled():
+            obs.gauge("directory_bytes", self.state.directory_bytes)
+            obs.event("seed", n_members=n, n_clusters=n_clusters,
+                      capacity=cap, backend=self.cfg.backend)
         return self.state
 
     def _require_state(self) -> MembershipState:
@@ -484,6 +498,22 @@ class MembershipEngine:
         on the torch backend.
         """
         st = self._require_state()
+        t0 = obs.now()
+        with obs.span("membership.assign", backend=self.cfg.backend) as sp:
+            res = self._assign(st, v)
+            # the labels come last out of the wave, so synchronising on
+            # them times the whole wave
+            sp.sync(res.labels)
+        if obs.enabled():
+            obs.observe("assign_latency_us", (obs.now() - t0) * 1e6)
+            obs.count("membership.assign_waves")
+            labels_np = _np(res.labels)
+            obs.event("assign_wave", n=int(labels_np.shape[0]),
+                      n_unassigned=int((labels_np == UNASSIGNED).sum()),
+                      backend=self.cfg.backend)
+        return res
+
+    def _assign(self, st: MembershipState, v) -> AssignResult:
         if self.on_device:
             v_w = self._wave(v)
             aff, labels, margin = assign_ops.assign(
@@ -560,6 +590,18 @@ class MembershipEngine:
         update; unassigned rows join the table but no prototype).  The
         resistant aggregators recompute from the live table instead.
         Returns the occupied slot indices (for ``evict``)."""
+        with obs.span("membership.admit") as sp:
+            slots = self._admit(lam, v, labels)
+            sp.sync(self.state.protos)
+        if obs.enabled():
+            st = self.state
+            obs.count("membership.admits", len(slots))
+            obs.gauge("directory_bytes", st.directory_bytes)
+            obs.event("admit", n=len(slots), slots=slots,
+                      n_members=int(st.n_members))
+        return slots
+
+    def _admit(self, lam, v, labels) -> np.ndarray:
         st = self._require_state()
         lam = _np(lam).astype(np.float32)
         slots = self._free_slots(lam.shape[0])
@@ -603,6 +645,17 @@ class MembershipEngine:
     def evict(self, slots) -> None:
         """Masked removal of table slots (churn): free the rows and
         down-date the prototypes by the departing members' projectors."""
+        with obs.span("membership.evict") as sp:
+            self._evict(slots)
+            sp.sync(self.state.protos)
+        if obs.enabled():
+            st = self.state
+            obs.count("membership.evicts", len(np.asarray(slots)))
+            obs.gauge("directory_bytes", st.directory_bytes)
+            obs.event("evict", n=len(np.asarray(slots)),
+                      slots=np.asarray(slots), n_members=int(st.n_members))
+
+    def _evict(self, slots) -> None:
         st = self._require_state()
         slots = _np(slots).astype(np.int32)
         if len(np.unique(slots)) != len(slots):
@@ -674,13 +727,17 @@ class MembershipEngine:
         rel = shift / base
         stat = (np.median(rel) if self.cfg.drift_stat == "median"
                 else rel.max())
-        return {
+        stats = {
             "unassigned_frac": st.n_unassigned / n,
             "proto_shift": float(stat),
             "proto_shift_max": float(rel.max()),
             "n_members": st.n_members,
             "n_reclusters": st.n_reclusters,
         }
+        if obs.enabled():
+            obs.gauge("unassigned_frac", stats["unassigned_frac"])
+            obs.gauge("proto_shift", stats["proto_shift"])
+        return stats
 
     def _tripped(self, stats: dict) -> bool:
         return (stats["unassigned_frac"] > self.cfg.recluster_unassigned_frac
@@ -695,8 +752,11 @@ class MembershipEngine:
         with the host HAC on the numpy backend and the NN-chain on the
         engine's device otherwise; the new cut ids are greedily matched
         onto the previous labels.  Returns whether a re-cluster ran."""
-        if not force and not self.should_recluster():
-            return False
+        if not force:
+            stats = self.drift_stats()
+            if not self._tripped(stats):
+                return False
+            obs.event("drift_trip", **stats)
         st = self._require_state()
         live = np.flatnonzero(_np(st.valid))
         if len(live) < st.n_clusters:
@@ -716,19 +776,27 @@ class MembershipEngine:
                 self.cfg.eig_floor).numpy()
             cengine = ClusterEngine(ClusterConfig(
                 backend="numpy", linkage=self.cfg.linkage))
-        fresh = _np(cengine.labels(big_r, st.n_clusters))
-        matched = greedy_match_labels(fresh, _np(st.labels)[live],
-                                      st.n_clusters)
-        lab_t = _np(st.labels).copy()
-        lab_t[live] = matched
-        labels = self._put(lab_t)
-        protos, counts = self._rebuild_protos(st.v, labels, st.valid,
-                                              st.n_clusters)
-        table, scales = self._quantize(protos)
+        with obs.span("membership.recluster", n_members=len(live)) as sp:
+            fresh = _np(cengine.labels(big_r, st.n_clusters))
+            matched = greedy_match_labels(fresh, _np(st.labels)[live],
+                                          st.n_clusters)
+            lab_t = _np(st.labels).copy()
+            lab_t[live] = matched
+            labels = self._put(lab_t)
+            protos, counts = self._rebuild_protos(st.v, labels, st.valid,
+                                                  st.n_clusters)
+            table, scales = self._quantize(protos)
+            sp.sync((labels, table, counts))
         self.state = dataclasses.replace(
             st, labels=labels, protos=table, counts=counts,
             protos0=table, n_reclusters=st.n_reclusters + 1,
             proto_scales=scales, proto0_scales=scales)
+        if obs.enabled():
+            before = _np(st.labels)[live]
+            obs.count("recluster_events")
+            obs.event("recluster", n_members=len(live), forced=bool(force),
+                      label_agreement=float((matched == before).mean()),
+                      n_reclusters=int(self.state.n_reclusters))
         return True
 
     def maybe_recluster(self) -> bool:

@@ -4,7 +4,10 @@ Mirrors ``src/repro/core/oneshot.py`` on one device: the
 ``ProtocolEngine`` (Eqs. 1-5; dense, blockwise, landmarks, or from raw
 data), the ``ClusterEngine`` (HAC + cut) and the communication ledger;
 ``hierarchy_cfg`` routes to the two-level protocol of
-``core/hierarchy.py``.
+``core/hierarchy.py``.  Telemetry: the flat paths record the
+``oneshot.run`` span (``n_clusters``) around protocol, HAC and cut, and
+mirror the ledger into the ``comm.*`` gauges after it, as the reference
+does; the hierarchical path returns before the span.
 With the torch cluster backend, ``R`` and the labels stay on the device
 from protocol to labels.
 """
@@ -17,6 +20,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import clustering as clu
 from repro_torch.core import similarity as sim
 from repro_torch.core.cluster_engine import (ClusterConfig, ClusterEngine,
@@ -218,24 +222,26 @@ def one_shot_clustering(features: Sequence[np.ndarray] | np.ndarray
             features, n_clusters, cfg=cfg, hierarchy_cfg=hierarchy_cfg,
             cluster_cfg=cluster_cfg, n_valid=n_valid,
             model_params=model_params, device=device)
-    engine = ProtocolEngine(cfg, mesh=mesh, device=device)
-    if feature_cfg is not None:
-        res = engine.run_raw(features, feature_cfg, n_valid=n_valid,
-                             probe=probe, signature_cfg=signature_cfg)
-    else:
-        res = engine.run(features, n_valid)
-    cengine = ClusterEngine(cluster_cfg, device=engine.device)
-    if cengine.on_device:
-        big_r, relevance = res.similarity, res.relevance
-    else:
-        big_r = res.similarity.cpu().numpy()
-        relevance = res.relevance.cpu().numpy()
-    dend = cengine.hac(big_r)
-    labels = cengine.cut(dend, n_clusters)
-    ledger = CommLedger(
-        n_users=res.n_users, d=res.d, top_k=res.top_k,
-        model_params=model_params,
-        mode="streaming" if engine.cfg.block_users else "broadcast")
+    with obs.span("oneshot.run", n_clusters=n_clusters):
+        engine = ProtocolEngine(cfg, mesh=mesh, device=device)
+        if feature_cfg is not None:
+            res = engine.run_raw(features, feature_cfg, n_valid=n_valid,
+                                 probe=probe, signature_cfg=signature_cfg)
+        else:
+            res = engine.run(features, n_valid)
+        cengine = ClusterEngine(cluster_cfg, device=engine.device)
+        if cengine.on_device:
+            big_r, relevance = res.similarity, res.relevance
+        else:
+            big_r = res.similarity.cpu().numpy()
+            relevance = res.relevance.cpu().numpy()
+        dend = cengine.hac(big_r)
+        labels = cengine.cut(dend, n_clusters)
+        ledger = CommLedger(
+            n_users=res.n_users, d=res.d, top_k=res.top_k,
+            model_params=model_params,
+            mode="streaming" if engine.cfg.block_users else "broadcast")
+    obs.record_ledger(ledger)
     return OneShotResult(labels=labels, similarity=big_r,
                          relevance=relevance, dendrogram=dend,
                          ledger=ledger, lam=res.lam, v=res.v)

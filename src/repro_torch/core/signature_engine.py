@@ -15,6 +15,10 @@ PyTorch port of ``src/repro/core/signature_engine.py``:
     ``eig="eigh"`` is the exact fallback and ``subspace_residual``
     detects non-convergence.
 
+Telemetry, as in the reference: the ``signature.accumulate_grams``
+(``n_users``, ``backend``) and ``signature.signatures`` (``top_k``,
+``backend``) spans, each synchronising its outputs.
+
 ``backend`` is ``"torch"`` (one device; the kernels follow the tensors'
 device) or ``"shard_map"``, which marks the config for the sharded raw
 protocol: ``ProtocolEngine.run_raw`` runs this engine's streaming step on
@@ -27,6 +31,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.core import similarity as sim
 from repro_torch.data import features as feat
 from repro_torch.kernels.dispatch import resolve_device
@@ -317,6 +322,14 @@ class SignatureEngine:
         that padded tail; eager torch takes the short tail as it is, so
         with ``assume_full`` no chunk needs the mask.)
         """
+        with obs.span("signature.accumulate_grams", n_users=raw.shape[0],
+                      backend=self.cfg.backend) as sp:
+            return sp.sync(self._accumulate_grams(raw, nv, assume_full))
+
+    def _accumulate_grams(self, raw, nv: torch.Tensor,
+                          assume_full: bool = False) -> torch.Tensor:
+        """``accumulate_grams`` without its span (the sharded raw
+        protocol's per-rank body)."""
         n_users, n, m = raw.shape
         d_out = self.out_dim(m)
         params = self.params_for(m)
@@ -368,8 +381,11 @@ class SignatureEngine:
         ``check`` (default ``cfg.check``) verifies subspace convergence
         and raises ``RuntimeError`` above ``cfg.resid_tol``.
         """
-        g = self.grams(raw, n_valid)
-        lam, v = self.spectrum(g, top_k)
+        with obs.span("signature.signatures", top_k=top_k,
+                      backend=self.cfg.backend) as sp:
+            g = self.grams(raw, n_valid)
+            lam, v = self.spectrum(g, top_k)
+            sp.sync((lam, v))
         if self.cfg.check if check is None else check:
             self.verify_convergence(subspace_residual(g, lam, v))
         return lam, v, g

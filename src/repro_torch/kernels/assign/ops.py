@@ -328,10 +328,11 @@ def assign(v: torch.Tensor, protos: torch.Tensor, mask=None,
                     plan.n_slices, plan.ksteps_per_slice,
                     dispatch.stream_of(v))
             else:
+                plan = None
                 rc = lib.repro_assign_wave(*head, *outs, b, t, d, k,
                                            dispatch.stream_of(v))
         build.check(rc, "assign_wave")
-        dispatch.count_launch("assign_wave")
+        dispatch.count_launch("assign_wave", plan)
     return aff / k, labels, margin / k
 
 
@@ -367,5 +368,5 @@ def assign_looped(v: torch.Tensor, protos: torch.Tensor, mask=None,
                 plan.col_tiles, plan.slice_rows, plan.v_rows, plan.stages,
                 int(compute_dtype == "bf16"), dispatch.stream_of(v))
         build.check(rc, "assign_one")
-        dispatch.count_launch("assign_one")
+        dispatch.count_launch("assign_one", plan)
     return aff, labels, margin

@@ -15,6 +15,9 @@ build.
 
 Importing this module builds nothing: ``library()`` does, once per
 process, and raises if ``nvcc`` is missing or a source does not compile.
+``add_build_listener`` registers a callable run after every finished
+build (never on a stamp hit); telemetry counts builds through it
+(``retrace_count``, ``repro_torch.obs.metrics``).
 """
 from __future__ import annotations
 
@@ -26,8 +29,10 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import Callable
 
-__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library", "build", "check"]
+__all__ = ["CSRC", "BUILD_DIR", "NVCC_FLAGS", "library", "build", "check",
+           "ensure_built", "add_build_listener"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (Path(__file__).resolve().parents[3] / "build"
@@ -105,13 +110,33 @@ def _digest() -> str:
     return h.hexdigest()
 
 
+#: Callables run with the library's path after every finished build.
+_BUILD_LISTENERS: list[Callable[[Path], None]] = []
+
+
+def add_build_listener(fn: Callable[[Path], None]) -> None:
+    """Run ``fn(path)`` after every finished build (idempotent)."""
+    if fn not in _BUILD_LISTENERS:
+        _BUILD_LISTENERS.append(fn)
+
+
 def build(out_dir: Path = BUILD_DIR) -> Path:
     """Compile every ``csrc/*.cu`` in parallel and link the library.
 
     Returns the library's path; raises ``RuntimeError`` with the
     compiler's output when a step fails.  The compiler's ``-Xptxas -v``
     report (registers, shared memory, spills) goes to ``build.log``.
+    Every registered build listener runs after a finished build.
     """
+    path = _compile(out_dir)
+    for fn in tuple(_BUILD_LISTENERS):
+        fn(path)
+    return path
+
+
+def _compile(out_dir: Path) -> Path:
+    """The ``nvcc`` steps of ``build``: compile and link into
+    ``out_dir``."""
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=out_dir) as tmp:
@@ -144,17 +169,23 @@ def build(out_dir: Path = BUILD_DIR) -> Path:
     return out_dir / LIB_NAME
 
 
+def ensure_built(out_dir: Path = BUILD_DIR) -> Path:
+    """The library's path in ``out_dir``, built first if its stamp is
+    stale (a stamp hit reuses the finished build)."""
+    stamp = out_dir / "stamp"
+    digest = _digest()
+    lib_path = out_dir / LIB_NAME
+    if not (lib_path.is_file() and stamp.is_file()
+            and stamp.read_text() == digest):
+        lib_path = build(out_dir)
+        stamp.write_text(digest)
+    return lib_path
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if its stamp is stale."""
-    stamp = BUILD_DIR / "stamp"
-    digest = _digest()
-    lib_path = BUILD_DIR / LIB_NAME
-    if not (lib_path.is_file() and stamp.is_file()
-            and stamp.read_text() == digest):
-        lib_path = build(BUILD_DIR)
-        stamp.write_text(digest)
-    lib = ctypes.CDLL(str(lib_path))
+    lib = ctypes.CDLL(str(ensure_built(BUILD_DIR)))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes

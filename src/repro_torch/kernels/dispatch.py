@@ -5,13 +5,22 @@ between lowered and interpreted Pallas, the port decides by the tensor's
 device.  A CUDA tensor goes through the hand-written kernel; a CPU
 tensor goes through the plain PyTorch version.  There is no silent
 fallback: a missing card is an error unless the caller asked for the CPU.
+
+``count_launch`` is the one place a launch is counted: in ``LAUNCHES``
+always, and through ``record_dispatch`` in the telemetry registry while
+``repro_torch.obs`` is enabled.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-__all__ = ["LAUNCHES", "resolve_device", "device_kind", "on_cuda",
-           "count_launch", "reset_launches", "stream_of", "aligned16"]
+from repro_torch import obs
+
+__all__ = ["LAUNCHES", "FAMILIES", "resolve_device", "device_kind",
+           "on_cuda", "count_launch", "reset_launches", "stream_of",
+           "aligned16", "record_dispatch"]
 
 #: Kernel name -> launches since the last ``reset_launches()``.  Each
 #: wrapper adds one where it launches its kernel, and nowhere else.
@@ -20,6 +29,18 @@ LAUNCHES: dict[str, int] = {"gram": 0, "eigproject": 0, "linkage": 0,
                             "gram_project": 0, "assign_wave": 0,
                             "assign_one": 0, "flash_attention": 0,
                             "wkv_chunked": 0, "linear_scan": 0}
+
+#: Launch name -> the reference's tuning family
+#: (``src/repro/kernels/tuning.py::KERNELS``), the ``kernel`` label of
+#: ``kernel_calls``.  ``flash_attention`` has no family there and is not
+#: recorded.
+FAMILIES: dict[str, str] = {"gram": "gram", "eigproject": "eigproject",
+                            "linkage": "linkage", "linkage_step": "linkage",
+                            "featurize_gram": "featurize_gram",
+                            "gram_project": "gram_project",
+                            "assign_wave": "assign", "assign_one": "assign",
+                            "wkv_chunked": "recurrent_scan",
+                            "linear_scan": "recurrent_scan"}
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
@@ -71,8 +92,30 @@ def aligned16(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def count_launch(name: str) -> None:
+def record_dispatch(kernel: str, blocks: dict | None = None) -> None:
+    """Telemetry tap for kernel dispatches (the reference's
+    ``dispatch.record_dispatch``).
+
+    Feeds ``dispatch_count`` (stack-wide total), per-family
+    ``kernel_calls{kernel=..}`` counters, and a ``kernel_blocks`` gauge
+    holding the launch plan, where the wrapper computed one.
+    """
+    if not obs.enabled():
+        return
+    obs.count("dispatch_count")
+    obs.count("kernel_calls", kernel=kernel)
+    if blocks:
+        plan = ",".join(f"{k}={blocks[k]}" for k in sorted(blocks))
+        obs.gauge("kernel_blocks", plan, kernel=kernel)
+
+
+def count_launch(name: str, plan=None) -> None:
+    """Count one launch of kernel ``name``; ``plan`` is the launch plan
+    (a dataclass) where the wrapper computed one."""
     LAUNCHES[name] += 1
+    if obs.enabled() and name in FAMILIES:
+        record_dispatch(FAMILIES[name], None if plan is None
+                        else dataclasses.asdict(plan))
 
 
 def reset_launches() -> None:

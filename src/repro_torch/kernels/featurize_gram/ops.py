@@ -149,7 +149,7 @@ def batched_featurize_gram(x: torch.Tensor, w: torch.Tensor,
             out.data_ptr(), n_users, c, m, d, int(compute_dtype == "bf16"),
             plan.rows, plan.stages, dispatch.stream_of(x))
     build.check(rc, "featurize_gram")
-    dispatch.count_launch("featurize_gram")
+    dispatch.count_launch("featurize_gram", plan)
     return out
 
 

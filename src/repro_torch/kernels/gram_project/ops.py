@@ -96,7 +96,7 @@ def batched_gram_project(x: torch.Tensor, v: torch.Tensor,
                                     plan.bk, plan.stages,
                                     dispatch.stream_of(x))
     build.check(rc, "gram_project")
-    dispatch.count_launch("gram_project")
+    dispatch.count_launch("gram_project", plan)
     nv = n if n_valid is None else n_valid
     nv = torch.clamp_min(torch.as_tensor(nv, dtype=torch.float32,
                                          device=x.device), 1.0)

@@ -130,15 +130,16 @@ def _run_chains(s: torch.Tensor, code: int, batch: int, n: int):
     counters = torch.zeros((batch, 3), dtype=torch.int32, device=dev)
     if n < 2 or batch == 0:
         return merges, heights, counters
-    scratch = torch.empty((batch * chain_plan(n).scratch,),
-                          dtype=torch.uint8, device=dev)
+    plan = chain_plan(n)
+    scratch = torch.empty((batch * plan.scratch,), dtype=torch.uint8,
+                          device=dev)
     with torch.cuda.device(dev):
         rc = build.library().repro_nn_chain(
             s.data_ptr(), batch, n, code, max_iterations(n),
             merges.data_ptr(), heights.data_ptr(), counters.data_ptr(),
             scratch.data_ptr(), dispatch.stream_of(s))
     build.check(rc, "nn_chain")
-    dispatch.count_launch("linkage")
+    dispatch.count_launch("linkage", plan)
     return merges, heights, counters
 
 

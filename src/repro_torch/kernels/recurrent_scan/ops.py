@@ -156,5 +156,5 @@ def linear_scan(log_a, x, h0) -> tuple[torch.Tensor, torch.Tensor]:
                                    int(plan.route == "tma"),
                                    dispatch.stream_of(x))
     build.check(rc, "linear_scan")
-    dispatch.count_launch("linear_scan")
+    dispatch.count_launch("linear_scan", plan)
     return h, h_last

@@ -21,7 +21,7 @@ Three layers, slowest to fastest:
 Cluster ids come from ``MembershipEngine.assign`` over
 ``data/tokens.py::token_features`` signatures (``route_requests``).
 The telemetry of the reference (``obs`` spans, events and counters)
-waits for ROADMAP Queue 1 item 12.
+waits for ROADMAP Queue 1 item 12b.
 """
 from __future__ import annotations
 

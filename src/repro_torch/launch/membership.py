@@ -37,17 +37,19 @@ Accuracy counts honest arrivals from seed-known tasks only.  The loop
 also keeps the trainer's ``(T, C_max)`` stack layout through
 ``fed.partition.admit_layout``, which never changes its shape.
 ``--seed-groups G`` seeds the directory from the hierarchical two-level
-protocol over G edge groups.  ``--events`` (telemetry) waits for
-ROADMAP Queue 1 item 12.
+protocol over G edge groups.  ``--events out.jsonl`` enables
+telemetry (``repro_torch.obs``) for the run and writes the event stream
+(seed, assign-wave, admit, evict, drift-trip, re-cluster) there.
 """
 from __future__ import annotations
 
 import argparse
 import json
-import time
 import zlib
 
 import numpy as np
+
+from repro_torch import obs
 
 SCENARIOS = ("clean", "label-noise", "byzantine", "drift")
 ARRIVAL_PATTERNS = ("steady", "bursty")
@@ -121,13 +123,13 @@ def run_cell(args, scenario: str, arrivals: str, verbose: bool = True,
     scfg = SimilarityConfig(top_k=args.top_k)
     hierarchy_cfg = (HierarchyConfig(n_groups=args.seed_groups)
                      if args.seed_groups else None)
-    t0 = time.perf_counter()
+    t0 = obs.now()
     res = oneshot.one_shot_clustering(
         torch.from_numpy(feats_all[seed_idx]), n_clusters=args.tasks,
         cfg=scfg, cluster_cfg=ClusterConfig(backend="torch"), device=device,
         hierarchy_cfg=hierarchy_cfg)
     seed_labels = _host(res.labels)
-    seed_time = time.perf_counter() - t0
+    seed_time = obs.now() - t0
     seed_tasks = tids_all[seed_idx]
     seed_acc = clu.clustering_accuracy(seed_labels, seed_tasks)
     if verbose:
@@ -206,14 +208,14 @@ def run_cell(args, scenario: str, arrivals: str, verbose: bool = True,
                                                   args.tasks - 1)])
 
         sync()
-        t0 = time.perf_counter()
+        t0 = obs.now()
         out = engine.assign(lam_w, v_w)
         labels = _host(out.labels)
-        assign_ms.append((time.perf_counter() - t0) * 1e3)
-        t0 = time.perf_counter()
+        assign_ms.append((obs.now() - t0) * 1e3)
+        t0 = obs.now()
         slots = engine.admit(lam_w, v_w, labels)
         sync()
-        admit_ms.append((time.perf_counter() - t0) * 1e3)
+        admit_ms.append((obs.now() - t0) * 1e3)
         live_slots.extend(int(s) for s in slots)
 
         assigned = labels >= 0
@@ -228,12 +230,12 @@ def run_cell(args, scenario: str, arrivals: str, verbose: bool = True,
         stats = engine.drift_stats()
         unassigned_traj.append(float(stats["unassigned_frac"]))
         n_members = stats["n_members"]
-        t0 = time.perf_counter()
+        t0 = obs.now()
         event = engine.maybe_recluster()
         sync()
         if event:
             recluster_waves.append(w)
-            recluster_ms.append((time.perf_counter() - t0) * 1e3)
+            recluster_ms.append((obs.now() - t0) * 1e3)
             recluster_members.append(int(n_members))
             # a relabel invalidates the column assignment: rebuild at the
             # SAME (T, C_max)
@@ -348,7 +350,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--json", default=None,
                     help="write cell summaries to this path")
     ap.add_argument("--events", default=None,
-                    help="record the event stream (not ported yet)")
+                    help="record the obs event stream (admit/evict/"
+                         "assign-wave/drift-trip/recluster) to this JSONL")
     ap.add_argument("--seed", type=int, default=0)
     return ap
 
@@ -361,9 +364,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
         args.waves, args.wave_size, args.evict = 3, 8, 2
         args.drift_after = 1
     if args.events:
-        raise NotImplementedError(
-            "--events (the telemetry event stream) is not ported yet "
-            "(ROADMAP Queue 1 item 12)")
+        obs.reset()
+        obs.enable()
 
     if args.matrix:
         cells = []
@@ -384,6 +386,11 @@ def main(argv: list[str] | None = None) -> list[dict]:
         with open(args.json, "w") as fh:
             json.dump(cells, fh, indent=2)
         print(f"wrote {len(cells)} cell(s) to {args.json}")
+
+    if args.events:
+        obs.save_events(args.events)
+        print(f"wrote {len(obs.events())} event(s) to {args.events}")
+        obs.disable()
     return cells
 
 

@@ -14,7 +14,7 @@ encoder-decoder arch exits with the reference's message).  Mirrors
 (``greedy_decode``) on the same request mix, one cluster at a time; the
 default ``continuous`` mode runs the slot scheduler with chunked prefill
 and per-cluster heads.  Weights are random, drawn from ``--seed``.
-``--events`` (telemetry) waits for ROADMAP Queue 1 item 12.
+``--events`` (telemetry) waits for ROADMAP Queue 1 item 12b.
 """
 from __future__ import annotations
 

@@ -1011,3 +1011,39 @@ class TestLMKernelsOnCard:
         assert sum(dispatch.LAUNCHES[k] for k in (
             "flash_attention", "wkv_chunked", "linear_scan")) == 2
         close(got.cpu(), want, 1e-4)
+
+
+@pytest.mark.gpu
+class TestTelemetryOnCard:
+    """``repro_torch.obs`` on the card: a span synchronises the devices
+    of the tensors it was given before it reads the clock, and
+    ``kernel_calls`` counts the wrappers' real launches."""
+
+    def test_span_syncs_and_counts_launches(self, cuda_device):
+        from repro_torch import obs
+
+        x = torch.randn(256, 256, 512, device=cuda_device)
+        batched_gram_matrix(x)                     # build and warm up
+        torch.cuda.synchronize()
+        obs.reset()
+        dispatch.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        try:
+            with obs.scope(True):
+                with obs.span("gram") as sp:
+                    start.record()
+                    for _ in range(8):
+                        out = batched_gram_matrix(x)
+                    end.record()
+                    sp.sync({"out": [out]})
+                assert end.query()                 # synchronised at exit
+            (rec,) = obs.trace_records()
+            assert rec["dur_us"] >= start.elapsed_time(end) * 1e3
+            assert dispatch.LAUNCHES["gram"] == 8
+            assert obs.counter_value("kernel_calls", kernel="gram") == 8
+            assert obs.counter_value("dispatch_count") == 8
+            assert obs.counter_value("retrace_count") == 0
+        finally:
+            obs.disable()
+            obs.reset()

@@ -730,7 +730,7 @@ class TestLauncher:
                 assert launch.wave_plan(pattern, waves, size) == \
                     ref_launch.wave_plan(pattern, waves, size)
 
-    def test_main_quick_and_unported_flags(self, capsys):
+    def test_main_quick_and_unported_flags(self, capsys, tmp_path):
         cells = launch.main(["--device", "cpu", "--quick"])
         assert all(a == 1.0 for a in cells[0]["accuracy_per_wave"])
         assert "honest accuracy 100.0%" in capsys.readouterr().out
@@ -739,8 +739,15 @@ class TestLauncher:
         assert cells[0]["seed_accuracy"] == 1.0
         assert all(a == 1.0 for a in cells[0]["accuracy_per_wave"])
         assert "hierarchical (2 groups)" in capsys.readouterr().out
-        with pytest.raises(NotImplementedError, match="item 12"):
-            launch.main(["--device", "cpu", "--quick", "--events", "x"])
+        # --events, ported with the telemetry, writes the event stream
+        from repro_torch import obs
+
+        path = tmp_path / "events.jsonl"
+        launch.main(["--device", "cpu", "--quick", "--events", str(path)])
+        assert not obs.enabled()
+        kinds = [e["kind"] for e in obs.load_events(path)]
+        assert kinds[0] == "seed" and kinds.count("assign_wave") == 3
+        assert f"wrote {len(kinds)} event(s)" in capsys.readouterr().out
 
     def test_default_device_raises_without_card(self):
         if torch.cuda.is_available():

@@ -116,7 +116,8 @@ def test_port_imports_neither_jax_nor_reference():
                  "fed.partition", "launch.membership", "optim.optimizers",
                  "models.cnn", "models.mlp", "configs.paper_cnn",
                  "configs.paper_mlp", "fed.fedavg", "fed.hierarchy",
-                 "fed.client", "fed.trainer", "fed.ifca"):
+                 "fed.client", "fed.trainer", "fed.ifca", "obs", "obs.core",
+                 "obs.events", "obs.metrics", "obs.trace", "launch.obs"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
