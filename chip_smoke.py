@@ -109,6 +109,21 @@ two-level protocol and the sharded paths:
        off), reported only; (d) ``launch.obs profile`` over
        ``launch.membership --quick`` in a process of its own: every span
        name in the exported trace (its kernel events counted only).
+  [3q] LM training (``launch/train.py``'s step): (a) Qwen3-1.7B at its
+       published widths and full depth (bf16, remat), 10 steps of 2 x
+       1024 tokens: s a step (the first alone, the other nine with no
+       host synchronisation between them), tok/s, peak memory, losses
+       finite and falling, no kernel launched, and one traced step;
+       (b) REDUCED fp32 qwen3, rwkv6 and phi3.5-moe, the first step's
+       loss and gradient norm on the card against the CPU; (c) a
+       checkpoint after step 5, restored into a fresh model and optimizer
+       and run on to step 10 against the uninterrupted run, at 4 layers
+       and the REDUCED widths (``--resume-at-published-widths`` runs
+       this check alone at the published widths, where the save takes
+       minutes); (d) the grad-mode guard of the three LM kernels;
+       (e) phase 3f's serving cell with telemetry off, on and off: the
+       same tokens, the ``serve.*`` records; (f) phase 3i(b)'s fused run
+       with the trainer's records.
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -185,6 +200,11 @@ first token and logit gaps, the trainer's and IFCA's times, gaps and
 accuracies, each phase's seconds), the card's
 name and power limit, and a ``{"kernels": [...]}`` line.  Without a CUDA device, or outside the repository, it exits
 non-zero and prints no result.  It imports nothing of JAX.
+
+    python3 chip_smoke.py --resume-at-published-widths
+
+runs phase 3q(c) alone at Qwen3-1.7B's published widths (4 layers) and
+ends with the same last line.
 """
 from __future__ import annotations
 
@@ -327,6 +347,16 @@ WKV_DRAWS, WKV_DRAW_SEED = 8, SEED + 1
 OBS_USERS = 256
 OBS_PAIRS, OBS_TRIALS, OBS_BUNDLE_CALLS = 30, 2, 20_000
 OBS_PIECE_CALLS = 200
+# LM training (phase 3q): launch/train.py's step on qwen3_1_7b at its
+# published widths and full depth (bf16, remat on), batch x sequence, the
+# launcher's default learning rate and its schedule over the run's steps;
+# the REDUCED fp32 configs held card against CPU on their first step
+# (batch x sequence); the checkpoint resume at RESUME_LAYERS layers, saved
+# after RESUME_AT steps.
+TRAIN_LM_SHAPE, TRAIN_LM_STEPS, TRAIN_LM_LR = (2, 1024), 10, 3e-3
+TRAIN_LM_CHECK_ARCHS = ("qwen3_1_7b", "rwkv6_1_6b", "phi3_5_moe")
+TRAIN_LM_CHECK_SHAPE = (2, 64)
+RESUME_LAYERS, RESUME_AT = 4, 5
 
 
 class SmokeFailure(RuntimeError):
@@ -502,6 +532,103 @@ def memory_line(torch, live_before: int) -> tuple[int, str]:
     return peak, (f"peak device memory {peak / 2**30:.2f} GiB, "
                   f"{(peak - live_before) / 2**30:.2f} GiB above the "
                   f"{live_before / 2**30:.2f} GiB live before the call")
+
+
+def resume_check(cfg, dev, ckpt_dir: str) -> dict:
+    """Phase 3q's training settings on ``cfg``: an uninterrupted run of
+    TRAIN_LM_STEPS steps that checkpoints after RESUME_AT, and a fresh
+    model and optimizer restored from that checkpoint and run on to the
+    end.  Returns both runs' losses, the checkpoint's bytes on disk and
+    before compression, its times: ``tree_s`` (``checkpoint_tree``, the
+    reference layout on the card), ``save_s`` (``save_checkpoint``: host
+    copies, compression, writes), ``restore_s`` (``restore_checkpoint``
+    onto the card) and ``load_s`` (``load_checkpoint_tree``), and the
+    process's peak resident set on the host."""
+    import resource
+    import zipfile
+
+    import torch
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_model
+
+    m = get_model(cfg)
+    opt = launch_train.make_optimizer(TRAIN_LM_LR, TRAIN_LM_STEPS)
+    out = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        value = fn()
+        torch.cuda.synchronize(dev)
+        out[key] = time.perf_counter() - t
+        return value
+
+    def run(seed, start):
+        model = m.init(seed, device=dev)
+        model.requires_grad_(True)
+        out["params"] = sum(p.numel() for p in model.parameters())
+        state = opt.init(dict(model.named_parameters()))
+        if start:
+            tree, step = timed("restore_s", lambda: restore_checkpoint(
+                ckpt_dir, launch_train.checkpoint_template(cfg, model,
+                                                           state),
+                device=dev))
+            require(step == start, f"3q(c): restored step {step}")
+            state = timed("load_s", lambda: launch_train.load_checkpoint_tree(
+                cfg, model, tree))
+            del tree
+        it = launch_train.batch_stream(cfg, *TRAIN_LM_SHAPE)
+        for _ in range(start):
+            next(it)
+        losses = []
+        for i in range(start, TRAIN_LM_STEPS):
+            batch = launch_train.make_batch(cfg, next(it), i, dev)
+            state, loss = launch_train.train_step(m, model, opt, state, batch)
+            losses.append(loss)
+            if not start and i + 1 == RESUME_AT:
+                tree = timed("tree_s", lambda: launch_train.checkpoint_tree(
+                    cfg, model, state))
+                path = timed("save_s", lambda: save_checkpoint(
+                    ckpt_dir, RESUME_AT, tree))
+                del tree
+                out["bytes"] = path.stat().st_size
+                with zipfile.ZipFile(path) as z:
+                    out["raw_bytes"] = sum(f.file_size for f in z.infolist())
+        return [float(loss) for loss in losses]
+
+    out["losses"] = run(SEED, 0)
+    out["resumed"] = run(SEED + 7, RESUME_AT)
+    out["host_peak_rss_gib"] = resource.getrusage(
+        resource.RUSAGE_SELF).ru_maxrss / 2**20
+    return out
+
+
+def resume_line(cfg, res: dict) -> tuple[float, bool]:
+    """Print ``resume_check``'s result; returns the largest relative gap
+    of the resumed losses to the uninterrupted run's, and whether they
+    are the same bits."""
+    tail = res["losses"][RESUME_AT:]
+    resumed = res["resumed"]
+    bit_equal = resumed == tail
+    gap = max(abs(a - b) / max(1.0, abs(b)) for a, b in zip(resumed, tail)) \
+        if len(resumed) == len(tail) else float("inf")
+    print(f"  (c) {cfg.name} at {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"vocab {cfg.vocab}, {cfg.param_dtype}, remat {cfg.remat} "
+          f"({res['params'] / 1e6:.1f}M parameters): checkpoint after step "
+          f"{RESUME_AT} of {res['raw_bytes'] / 2**30:.3f} GiB before "
+          f"compression, {res['bytes'] / 2**30:.3f} GiB on disk; "
+          f"checkpoint_tree {res['tree_s']:.3f} s, save_checkpoint "
+          f"{res['save_s']:.3f} s ({res['raw_bytes'] / res['save_s'] / 1e6:.1f}"
+          f" MB/s before compression), restore_checkpoint "
+          f"{res['restore_s']:.3f} s, load_checkpoint_tree "
+          f"{res['load_s']:.3f} s; host peak resident set "
+          f"{res['host_peak_rss_gib']:.2f} GiB")
+    print(f"      run on to step {TRAIN_LM_STEPS} in a fresh model and "
+          f"optimizer: losses {[round(l_, 5) for l_ in resumed]} against the "
+          f"uninterrupted {[round(l_, 5) for l_ in tail]}, largest gap "
+          f"{gap:.3e}, bit-equal {bit_equal}")
+    return gap, bit_equal
 
 
 def max_err(torch, a, b) -> float:
@@ -843,13 +970,55 @@ def check_assign(torch, name, got, want, k, compute_dtype, quiet=False
     return err, m_err, abs_err / k
 
 
-def main() -> int:
+def resume_at_published_widths(torch) -> int:
+    """Phase 3q(c) alone, at qwen3_1_7b's published widths with
+    RESUME_LAYERS layers (bf16, remat), where saving the checkpoint takes
+    minutes: its sizes, times and losses."""
+    from repro_torch.configs.base import get_arch
+
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"[1] card: {card_line()}")
+    cfg = dataclasses.replace(get_arch("qwen3_1_7b"), n_layers=RESUME_LAYERS)
+    print(f"[3q(c)] checkpoint resume at published widths: {cfg.name} "
+          f"CONFIG at {RESUME_LAYERS} layers, batch {TRAIN_LM_SHAPE[0]} x "
+          f"{TRAIN_LM_SHAPE[1]}, {TRAIN_LM_STEPS} steps, saved after step "
+          f"{RESUME_AT}")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        res = resume_check(cfg, dev, ckpt)
+    gap, bit_equal = resume_line(cfg, res)
+    print(f"  peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - t:.1f} s in all")
+    require(gap <= TRAIN_LOSS_TOL,
+            "3q(c): the resumed losses differ from the uninterrupted run's")
+    print(json.dumps({"resume_at_published_widths": dict(
+        layers=RESUME_LAYERS, gap=gap, bit_equal=bit_equal,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30, **res)}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--resume-at-published-widths", action="store_true",
+                    help="run only phase 3q(c)'s checkpoint resume, at "
+                    "qwen3_1_7b's published widths")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    if args.resume_at_published_widths:
+        return resume_at_published_widths(torch)
     import numpy as np
 
     import torch.distributed as tdist
@@ -938,6 +1107,8 @@ def main() -> int:
     from repro_torch.fed.trainer import (MTHFLConfig, TaskModel,
                                          infer_cluster_classes, train_mthfl)
     from repro_torch.models import cnn
+    from repro_torch import optim as port_optim
+    from repro_torch.launch import train as launch_train
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3059,7 +3230,6 @@ def main() -> int:
     finally:
         tdist.destroy_process_group()
         shutil.rmtree(store_l, ignore_errors=True)
-    del raw_users
     phase_done("phase 3l")
 
     # -- Phase 3p: telemetry on the card ------------------------------------
@@ -3352,6 +3522,321 @@ def main() -> int:
                      kernel_events=n_kernel_events))
     del x_p, res_off, res_on, res_off2, served_p
     phase_done("phase 3p")
+
+    # -- Phase 3q: LM training; LM serving's and the trainer's records ------
+    cfg_q = get_arch("qwen3_1_7b")
+    print(f"[3q] LM training: launch/train.py's step on {cfg_q.name} CONFIG "
+          f"({cfg_q.n_layers} layers, d={cfg_q.d_model}, vocab "
+          f"{cfg_q.vocab}, {cfg_q.param_dtype}, remat {cfg_q.remat}), "
+          f"batch {TRAIN_LM_SHAPE[0]} x {TRAIN_LM_SHAPE[1]}, "
+          f"{TRAIN_LM_STEPS} steps; REDUCED card against CPU; checkpoint "
+          f"resume; the kernels' grad-mode guard; serving and trainer "
+          f"telemetry")
+    # (a) full width, full depth: s a step, tok/s, memory.
+    m_q = get_model(cfg_q)
+    torch.cuda.synchronize()
+    before_q = torch.cuda.memory_allocated()
+    model_q = m_q.init(SEED, device=dev)
+    model_q.requires_grad_(True)
+    n_params_q = sum(p.numel() for p in model_q.parameters())
+    opt_q = launch_train.make_optimizer(TRAIN_LM_LR, TRAIN_LM_STEPS)
+    state_q = opt_q.init(dict(model_q.named_parameters()))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    live = torch.cuda.memory_allocated()
+    it_q = launch_train.batch_stream(cfg_q, *TRAIN_LM_SHAPE)
+    # The first step is timed alone; the rest as one run with no host
+    # synchronisation between steps, as the launcher runs them (the
+    # losses stay on the card until the end).
+    losses_q = []
+    dispatch.reset_launches()
+    for i in range(TRAIN_LM_STEPS):
+        batch_q = launch_train.make_batch(cfg_q, next(it_q), i, dev)
+        if i < 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+        state_q, loss_q = launch_train.train_step(m_q, model_q, opt_q,
+                                                  state_q, batch_q)
+        losses_q.append(loss_q)
+        if i == 0:
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    s_step = (time.perf_counter() - t0) / (TRAIN_LM_STEPS - 1)
+    losses_q = [float(l_) for l_ in losses_q]
+    launches_q = dict(dispatch.LAUNCHES)
+    _, mem_q = memory_line(torch, live)
+    tokens_q = TRAIN_LM_SHAPE[0] * TRAIN_LM_SHAPE[1]
+    print(f"  (a) {n_params_q / 1e9:.3f}B parameters; weights and AdamW "
+          f"state {(live - before_q) / 2**30:.2f} GiB; first step "
+          f"{first_s:.3f} s, then {s_step:.3f} s a step over "
+          f"{TRAIN_LM_STEPS - 1} steps with no host synchronisation "
+          f"between them ({tokens_q / s_step:.0f} tok/s); {mem_q}")
+    print(f"      losses {[round(l_, 4) for l_ in losses_q]}; hand-written "
+          f"kernel launches {sum(launches_q.values())} (the train path is "
+          f"the plain one)")
+    # One more step, traced (device activity and the runtime's launch
+    # calls), after the timed ones: the device's busy share, the kernels
+    # the host launched, and the kernels that take the device's time
+    # (as in 3f; GUARD_SPINS spin kernels open the session).
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    batch_q = launch_train.make_batch(cfg_q, next(it_q), TRAIN_LM_STEPS,
+                                      dev)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(GUARD_SPINS):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state_q, loss_q = launch_train.train_step(m_q, model_q, opt_q,
+                                                  state_q, batch_q)
+        float(loss_q)
+        traced_s = time.perf_counter() - t0
+    events_q = prof.events()
+    host_q = sum(e.name in ("cudaLaunchKernel", "cuLaunchKernel",
+                            "cuLaunchKernelEx", "cudaLaunchKernelExC")
+                 for e in events_q) - GUARD_SPINS
+    spans_q = [(e.time_range.start, e.time_range.end) for e in events_q
+               if e.device_type == DeviceType.CUDA
+               and "spin_kernel" not in e.name]
+    busy_q, span_q = busy_share(spans_q)
+    by_kernel = {}
+    for e in events_q:
+        if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name:
+            key = e.name[:70]
+            by_kernel[key] = by_kernel.get(key, 0.0) + (
+                e.time_range.end - e.time_range.start)
+    total_q = sum(by_kernel.values())
+    top_q = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print(f"      a traced step: {traced_s:.3f} s; device busy {busy_q:.1%} "
+          f"of the kernels' span ({len(spans_q)} kernels and copies over "
+          f"{span_q:.3f} s on the profiler's clock; {host_q} kernel "
+          f"launches from the host); kernel time {total_q / 1e6:.3f} s, "
+          f"largest by share:")
+    for name, us in top_q:
+        print(f"        {us / total_q:6.1%} {name}")
+    require(all(np.isfinite(losses_q)) and losses_q[-1] < losses_q[0],
+            "3q(a): a loss is not finite, or the last is not below the "
+            "first")
+    require(sum(launches_q.values()) == 0,
+            f"3q(a): the train path launched kernels: {launches_q}")
+    summary["lm_training"] = dict(
+        arch=cfg_q.name, params=n_params_q, batch=list(TRAIN_LM_SHAPE),
+        losses=losses_q, first_step_s=first_s, s_per_step=s_step,
+        tok_per_s=tokens_q / s_step, traced_step_s=traced_s,
+        traced_busy_share=busy_q, traced_span_s=span_q,
+        traced_kernels=len(spans_q), host_launches=host_q,
+        kernel_s=total_q / 1e6,
+        top_kernels=[[name, us / total_q] for name, us in top_q],
+        state_gib=(live - before_q) / 2**30,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        above_live_gib=(torch.cuda.max_memory_allocated() - live) / 2**30)
+    del model_q, state_q, batch_q, loss_q, opt_q
+    torch.cuda.empty_cache()
+
+    # (b) REDUCED fp32, card against CPU on the same weights and batch:
+    # the first step's loss and gradient global norm, each within 1e-4 x
+    # max(1, |value|), or SPREAD_FACTOR x the card's own gap under a
+    # one-ulp nudge of the weights where that is larger.
+    def first_step(m_b, weights, raw, device):
+        model = m_b.init(SEED, device="cpu")
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.copy_(weights[k])
+        model = model.to(device)
+        model.requires_grad_(True)
+        batch = launch_train.make_batch(m_b.cfg, raw, 0, device)
+        loss = m_b.loss_fn(model, batch)
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        return (float(loss.detach()),
+                float(port_optim.global_norm(dict(enumerate(grads)))))
+
+    def rel_gaps(a, b):
+        return [abs(x - y) / max(1.0, abs(y)) for x, y in zip(a, b)]
+
+    check_b = {}
+    for arch in TRAIN_LM_CHECK_ARCHS:
+        m_b = get_model(get_arch(arch, reduced=True))
+        raw_b = next(launch_train.batch_stream(m_b.cfg,
+                                               *TRAIN_LM_CHECK_SHAPE))
+        base = {k: p.detach().clone() for k, p in
+                m_b.init(SEED, device="cpu").named_parameters()}
+        cpu_b = first_step(m_b, base, raw_b, torch.device("cpu"))
+        card_b = first_step(m_b, base, raw_b, dev)
+        gaps = rel_gaps(card_b, cpu_b)
+        spread = [max(g_) for g_ in zip(*(
+            rel_gaps(first_step(m_b, nudged(torch, base, 100 * r_), raw_b,
+                                dev), card_b)
+            for r_ in range(1, NUDGE_RUNS + 1)))]
+        bars = [max(TRAIN_LOSS_TOL, SPREAD_FACTOR * s_) for s_ in spread]
+        print(f"  (b) {m_b.cfg.name}: loss card {card_b[0]:.6f} CPU "
+              f"{cpu_b[0]:.6f}, gap {gaps[0]:.3e} (limit {bars[0]:.3e}; "
+              f"one-ulp spread {spread[0]:.3e}); gradient norm card "
+              f"{card_b[1]:.6f} CPU {cpu_b[1]:.6f}, gap {gaps[1]:.3e} "
+              f"(limit {bars[1]:.3e}; spread {spread[1]:.3e})")
+        require(gaps[0] <= bars[0] and gaps[1] <= bars[1],
+                f"3q(b): {arch}: the card's first step disagrees with the "
+                f"CPU's")
+        check_b[arch] = dict(card=card_b, cpu=cpu_b, gaps=gaps,
+                             spread=spread, limits=bars)
+    summary["lm_training"]["card_vs_cpu"] = check_b
+
+    # (c) checkpoint resume: (a)'s settings at RESUME_LAYERS layers and the
+    # REDUCED widths (at published widths the save alone takes minutes:
+    # ``python3 chip_smoke.py --resume-at-published-widths`` runs this
+    # check there by itself), saved after RESUME_AT steps, restored into
+    # a fresh model and optimizer, run on to the end; the losses against
+    # one uninterrupted run.
+    cfg_r = dataclasses.replace(
+        get_arch("qwen3_1_7b", reduced=True), n_layers=RESUME_LAYERS,
+        param_dtype=cfg_q.param_dtype, act_dtype=cfg_q.act_dtype,
+        remat=cfg_q.remat)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as ckpt:
+        res_r = resume_check(cfg_r, dev, ckpt)
+    gap_r, bit_equal_r = resume_line(cfg_r, res_r)
+    require(gap_r <= TRAIN_LOSS_TOL,
+            "3q(c): the resumed losses differ from the uninterrupted run's")
+    summary["lm_training"]["resume"] = dict(
+        layers=RESUME_LAYERS, bit_equal=bit_equal_r, gap=gap_r, **res_r)
+
+    # (d) the kernels refuse inputs that require grad under grad mode, and
+    # launch under no_grad; the counts move by exactly those launches.
+    def guard_inputs(requires_grad):
+        def r(*shape):
+            return randn(*shape).requires_grad_(requires_grad)
+        return {
+            "flash_attention": lambda: flash_attention(
+                r(1, 128, 2, 64), r(1, 128, 2, 64), r(1, 128, 2, 64)),
+            "wkv_chunked": lambda: wkv_chunked(
+                r(1, 128, 2, 64), r(1, 128, 2, 64), r(1, 128, 2, 64),
+                -randn(1, 128, 2, 64).abs().requires_grad_(requires_grad),
+                r(2, 64), r(1, 2, 64, 64)),
+            "linear_scan": lambda: linear_scan(
+                -randn(1, 128, 64).abs().requires_grad_(requires_grad),
+                r(1, 128, 64), r(1, 64)),
+        }
+
+    guard_d = {}
+    for name in ("flash_attention", "wkv_chunked", "linear_scan"):
+        dispatch.reset_launches()
+        try:
+            guard_inputs(True)[name]()
+            raised = False
+        except RuntimeError as exc:
+            raised = f"{name}: the CUDA kernel has no backward" in str(exc)
+        refused = dispatch.LAUNCHES[name]
+        with torch.no_grad():
+            out_d = guard_inputs(True)[name]()
+        guard_inputs(False)[name]()
+        torch.cuda.synchronize()
+        out_d = out_d[0] if isinstance(out_d, tuple) else out_d
+        guard_d[name] = dict(raised=raised,
+                             launches=dict(dispatch.LAUNCHES))
+        require(raised and refused == 0,
+                f"3q(d): {name} did not refuse an input that requires grad")
+        require(dispatch.LAUNCHES[name] == 2
+                and sum(dispatch.LAUNCHES.values()) == 2
+                and out_d.grad_fn is None
+                and bool(torch.isfinite(out_d).all()),
+                f"3q(d): {name} under no_grad: launches "
+                f"{dispatch.LAUNCHES}")
+    print(f"  (d) flash_attention, wkv_chunked, linear_scan: each raised on "
+          f"CUDA inputs that require grad under grad mode (0 launches), "
+          f"and launched under no_grad and on inputs without grad (2 "
+          f"launches each, no other kernel)")
+    summary["lm_training"]["grad_guard"] = guard_d
+
+    # (e) phase 3f's serving cell with telemetry off, on, off.
+    model_e = get_model(cfg_f)
+    params_e = model_e.init(SEED, device=dev)
+    heads_e = ClusterHeads.init(SEED + 1, params_e.head,
+                                n_clusters=LM_TASKS)
+    engine_e = ServeEngine(model_e, params_e, heads_e, scfg_f)
+    obs.disable()
+    obs.reset()
+    runs_e = []
+    for on in (False, True, False):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with obs.scope(on):
+            stats = engine_e.serve(reqs)
+        torch.cuda.synchronize()
+        runs_e.append((stats, time.perf_counter() - t0))
+    stats_e = runs_e[1][0]
+    snap_e, events_e, recs_e = obs.snapshot(), obs.events(), \
+        obs.trace_records()
+    kinds_e = [e["kind"] for e in events_e]
+    same_e = all(np.array_equal(a.tokens, b.tokens)
+                 for st, _ in runs_e for a, b in zip(st.results,
+                                                     stats_e.results))
+    same_3f = all(np.array_equal(a.tokens, b.tokens)
+                  for a, b in zip(stats_e.results, stats_f.results))
+    counters_e = snap_e["counters"]
+    print(f"  (e) serving cell: wall off {runs_e[0][1]:.3f} s, on "
+          f"{runs_e[1][1]:.3f} s, off {runs_e[2][1]:.3f} s; tokens the "
+          f"same bits off and on {same_e} (and as phase 3f's {same_3f}); "
+          f"spans {[r_['name'] for r_ in recs_e]}; counters {counters_e}; "
+          f"events { {k: kinds_e.count(k) for k in sorted(set(kinds_e))} }")
+    require(same_e, "3q(e): the tokens differ with telemetry on and off")
+    require([r_["name"] for r_ in recs_e] == ["serve.run"]
+            and counters_e.get("serve.requests") == LM_REQUESTS
+            and counters_e.get("serve.prefill_dispatches")
+            == stats_e.prefill_dispatches
+            and counters_e.get("serve.decode_dispatches")
+            == stats_e.decode_dispatches
+            and snap_e["histograms"]["serve.ttft_us"]["count"]
+            == LM_REQUESTS
+            and abs(snap_e["gauges"]["serve.slot_utilization"]
+                    - stats_e.slot_utilization) <= 1e-12,
+            "3q(e): the serving counters disagree with ServeStats")
+    require(kinds_e.count("request_done") == LM_REQUESTS
+            and kinds_e.count("wave_admitted") == stats_e.prefill_dispatches
+            and kinds_e.count("slot_freed")
+            == sum(r_.gen > 1 for r_ in reqs),
+            "3q(e): the serving events are incomplete")
+    summary["lm_training"]["serving_telemetry"] = dict(
+        wall_off_s=runs_e[0][1], wall_on_s=runs_e[1][1],
+        wall_off_again_s=runs_e[2][1], same_bits=same_e,
+        same_as_3f=same_3f, counters=counters_e,
+        events={k: kinds_e.count(k) for k in set(kinds_e)})
+    del engine_e, params_e, heads_e, model_e
+    torch.cuda.empty_cache()
+
+    # (f) phase 3i(b)'s fused run with telemetry on.
+    obs.reset()
+    t0 = time.perf_counter()
+    with obs.scope(True):
+        hist_q = train_mthfl(raw_users, labels_r, models_b, evals_b,
+                             check_cfg, cluster_classes=all_classes,
+                             fused=True, device=dev)
+    torch.cuda.synchronize()
+    wall_qf = time.perf_counter() - t0
+    recs_f = {r_["name"]: r_ for r_ in obs.trace_records()}
+    counters_f = obs.snapshot()["counters"]
+    same_f = (np.array_equal(hist_q.train_loss, hist_fused.train_loss)
+              and np.array_equal(hist_q.accuracy, hist_fused.accuracy))
+    print(f"  (f) 3i(b)'s fused run with telemetry on: {wall_qf:.3f} s "
+          f"(off {wall_fused:.3f} s); spans {sorted(recs_f)}; counters "
+          f"{counters_f}; history the same bits as 3i(b)'s {same_f}")
+    obs.reset()
+    require(sorted(recs_f) == ["trainer.rounds", "trainer.train_mthfl"]
+            and recs_f["trainer.train_mthfl"]["parent"] == 0
+            and recs_f["trainer.rounds"]["parent"]
+            == recs_f["trainer.train_mthfl"]["id"]
+            and recs_f["trainer.train_mthfl"]["meta"]["fused"] is True,
+            "3q(f): the span tree is not trainer.train_mthfl > "
+            "trainer.rounds")
+    require(counters_f.get("trainer.runs") == 1
+            and counters_f.get("trainer.global_rounds")
+            == check_cfg.global_rounds,
+            "3q(f): trainer.runs or trainer.global_rounds is wrong")
+    require(same_f, "3q(f): the history differs with telemetry on")
+    summary["lm_training"]["trainer_telemetry"] = dict(
+        wall_on_s=wall_qf, wall_off_s=wall_fused, same_bits=same_f,
+        counters=counters_f)
+    del raw_users
+    phase_done("phase 3q")
 
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "

@@ -4,11 +4,12 @@ A copy of ``src/repro/configs/base.py``: ``get_arch`` imports
 ``repro_torch.configs.<id>``, so the port keeps its own schema and its
 own config files.  Each ported ``<id>.py`` exports ``CONFIG`` (the
 published sizes, source cited) and ``REDUCED`` (<=2 layers, d_model<=512)
-for CPU tests.  ``remat`` and ``scan_layers`` are the reference's JAX
-compile knobs (rematerialisation, a ``lax.scan`` over layer groups);
-the port keeps them as fields and they change nothing here: its layers
-are a ``ModuleList`` run in a loop, and it keeps no activations for a
-backward pass.
+for CPU tests.  ``remat`` wraps each layer of the pattern groups in
+``torch.utils.checkpoint`` while a gradient is taken (the reference's
+``jax.checkpoint``); ``scan_layers`` is the reference's ``lax.scan``
+over layer groups, which the port keeps as a field: its layers are a
+``ModuleList`` run in a loop, and the field only picks the reference's
+parameter layout in ``convert.lm_params_to_reference``.
 """
 from __future__ import annotations
 

@@ -15,7 +15,14 @@ fusion ``patch_proj`` included) into the port's ``LM``,
 ``encdec_params_from_reference`` its encoder-decoder tree into an
 ``EncDec``, and ``cluster_heads_from_reference`` carries the
 per-cluster serving heads, so a test runs both packages on the same
-random weights.
+random weights.  ``lm_params_to_reference`` and
+``encdec_params_to_reference`` go the other way: the port's parameters
+(or anything named like them, such as AdamW's ``m`` and ``v``) restacked
+into the reference's tree as numpy arrays.  ``reference_tree`` is that
+layout with the leaves left as they are, the one in which
+``launch/train.py`` checkpoints, so that either package's launcher
+continues the other's run, and ``reference_named`` maps a restored tree
+back to the parameter names.
 
 The trainer's models (the paper's CNN and MLP) carry nested ``{"w",
 "b"}`` dicts in the reference and flat PyTorch-layout dicts in the port:
@@ -29,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import to_numpy
 from repro_torch.core.cluster_engine import ClusterConfig
 from repro_torch.core.hierarchy import HierarchyConfig
 from repro_torch.core.membership_engine import MembershipConfig
@@ -48,8 +56,9 @@ __all__ = ["similarity_config_from_reference",
            "feature_config_from_reference",
            "signature_config_from_reference", "phi_params_from_reference",
            "membership_config_from_reference", "lm_params_from_reference",
-           "encdec_params_from_reference",
-           "cluster_heads_from_reference",
+           "encdec_params_from_reference", "lm_params_to_reference",
+           "encdec_params_to_reference", "reference_tree",
+           "reference_named", "cluster_heads_from_reference",
            "paper_cnn_params_from_reference",
            "paper_mlp_params_from_reference", "mthfl_config_from_reference",
            "ifca_config_from_reference"]
@@ -200,6 +209,132 @@ def encdec_params_from_reference(cfg, params: dict,
     enc = [_walk(params["enc"], dev, i) for i in range(cfg.encoder_layers)]
     dec = [_walk(params["dec"], dev, i) for i in range(cfg.n_layers)]
     return encdec.from_trees(cfg, top, enc, dec)
+
+
+_LM_TOP = ("embed", "final_norm", "head", "patch_proj")
+_ENCDEC_TOP = ("frame_proj", "embed", "enc_norm", "final_norm", "head")
+
+
+def _named(params) -> dict:
+    """An ``LM`` / ``EncDec`` (its parameters, detached) or a dict keyed
+    by the same names -> ``name -> leaf``."""
+    if isinstance(params, torch.nn.Module):
+        return {name: p.detach() for name, p in params.named_parameters()}
+    return dict(params)
+
+
+def _nest(flat: dict, prefix: str) -> dict:
+    """The entries of ``flat`` under ``prefix`` as a nested dict (names
+    split at their dots)."""
+    out: dict = {}
+    for name, leaf in flat.items():
+        if name.startswith(prefix):
+            *path, key = name[len(prefix):].split(".")
+            node = out
+            for part in path:
+                node = node.setdefault(part, {})
+            node[key] = leaf
+    return out
+
+
+def _stack(trees: list[dict]) -> dict:
+    """Dicts of one structure -> one dict of stacked leaves (the
+    reference's stacked layer axis): tensors by ``torch.stack``, numpy
+    arrays by ``np.stack``."""
+    out = {}
+    for key, first in trees[0].items():
+        leaves = [t[key] for t in trees]
+        out[key] = _stack(leaves) if isinstance(first, dict) else (
+            torch.stack(leaves) if isinstance(first, torch.Tensor)
+            else np.stack(leaves))
+    return out
+
+
+def _dotted(tree: dict, prefix: str, pick=None) -> dict:
+    """A nested dict -> ``prefix + dotted path -> leaf``; with ``pick``,
+    each leaf indexed along its leading (stacked-layer) axis."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_dotted(val, f"{prefix}{key}.", pick))
+        else:
+            out[prefix + key] = val if pick is None else val[pick]
+    return out
+
+
+def reference_tree(cfg, params) -> dict:
+    """The port's parameters in the reference's tree: an ``LM`` or
+    ``EncDec``, or a dict keyed by their parameter names (AdamW's ``m``
+    and ``v``), with its leaves as they are (tensors stay on their
+    device; layers are stacked where the reference stacks them).
+
+    A decoder takes the layout the reference's ``init`` builds for
+    ``cfg.scan_layers``: stacked ``groups`` (a leading layer-group axis)
+    or the list ``groups_unrolled``, then the remainder layers of
+    ``rest``.  An encoder-decoder (``cfg.encoder_layers``) stacks ``enc``
+    and ``dec`` along a leading layer axis."""
+    flat = _named(params)
+    if cfg.encoder_layers:
+        out = {key: flat[key] for key in _ENCDEC_TOP}
+        out["enc"] = _stack([_nest(flat, f"enc.{i}.")
+                             for i in range(cfg.encoder_layers)])
+        out["dec"] = _stack([_nest(flat, f"dec.{i}.")
+                             for i in range(cfg.n_layers)])
+        return out
+    width = len(cfg.block_pattern)
+    blocks = [_nest(flat, f"layers.{i}.") for i in range(cfg.n_layers)]
+    groups = [{str(j): blocks[g * width + j] for j in range(width)}
+              for g in range(cfg.n_groups)]
+    out = {key: flat[key] for key in _LM_TOP if key in flat}
+    if cfg.scan_layers and cfg.n_groups > 0:
+        out["groups"] = _stack(groups)
+    else:
+        out["groups_unrolled"] = groups
+    out["rest"] = {str(j): blocks[cfg.n_groups * width + j]
+                   for j in range(len(cfg.rest_kinds))}
+    return out
+
+
+def reference_named(cfg, tree: dict) -> dict:
+    """The inverse of ``reference_tree``: the reference's decoder or
+    encoder-decoder tree -> ``parameter name -> leaf``, a stacked leaf
+    indexed by its layer (a view, for a tensor).  Leaves are not
+    converted: a restored checkpoint's tensors map to the names that
+    ``model.named_parameters()`` and AdamW's state use."""
+    if cfg.encoder_layers:
+        out = {key: tree[key] for key in _ENCDEC_TOP}
+        for i in range(cfg.encoder_layers):
+            out.update(_dotted(tree["enc"], f"enc.{i}.", i))
+        for i in range(cfg.n_layers):
+            out.update(_dotted(tree["dec"], f"dec.{i}.", i))
+        return out
+    width = len(cfg.block_pattern)
+    out = {key: tree[key] for key in _LM_TOP if key in tree}
+    for g in range(cfg.n_groups):
+        for j in range(width):
+            prefix = f"layers.{g * width + j}."
+            out.update(_dotted(tree["groups"][str(j)], prefix, g)
+                       if "groups" in tree else
+                       _dotted(tree["groups_unrolled"][g][str(j)], prefix))
+    for j in range(len(cfg.rest_kinds)):
+        out.update(_dotted(tree["rest"][str(j)],
+                           f"layers.{cfg.n_groups * width + j}."))
+    return out
+
+
+def lm_params_to_reference(cfg, params) -> dict:
+    """The inverse of ``lm_params_from_reference`` (and, for an
+    ``EncDec``, of ``encdec_params_from_reference``): the model, or a
+    dict keyed by its parameter names, -> the reference's tree of numpy
+    arrays (``reference_tree``'s layout).  bf16 leaves come out as
+    float32, which holds them exactly (the checkpoint stores them so)."""
+    return reference_tree(cfg, {name: to_numpy(t) for name, t
+                                in _named(params).items()})
+
+
+#: ``reference_tree`` reads the model kind off ``cfg``, so one function
+#: inverts both ``*_from_reference``.
+encdec_params_to_reference = lm_params_to_reference
 
 
 def cluster_heads_from_reference(heads, device: str | torch.device = "cuda"

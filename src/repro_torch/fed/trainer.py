@@ -50,6 +50,14 @@ parameters and reports a NaN loss.
 
 The training runs in IEEE fp32 (``client.fp32_scope``), as the reference
 computes.
+
+Telemetry (``repro_torch.obs``, the reference's records): the
+``trainer.train_mthfl`` span (``fused``, ``backend``, ``rounds``) over a
+run, the fused path's round loop under ``trainer.rounds``, or under
+``trainer.scan_rounds`` where ``cfg.scan_rounds`` is set (the name the
+reference's scanned rounds record; the port's rounds run one by one
+either way), and the ``trainer.runs`` and ``trainer.global_rounds``
+counters.
 """
 from __future__ import annotations
 
@@ -60,6 +68,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch import obs
 from repro_torch.core import distributed as mdist
 from repro_torch.fed import client as fed_client
 from repro_torch.fed import hierarchy as hier
@@ -316,38 +325,42 @@ def _train_fused(models, evals, cfg: MTHFLConfig, setup: _ClusterSetup,
 
     acc_hist = np.zeros((cfg.global_rounds, n_clusters))
     loss_hist = np.zeros((cfg.global_rounds, n_clusters))
-    for g in range(cfg.global_rounds):
-        m_eff = torch.zeros((n_own, c_max))
-        for i, t in enumerate(own):
-            if size[i]:
-                m_eff[i, :size[i]] = torch.tensor(
-                    draws.participation(t, g, cfg.dropout_frac))
-        m_eff = mask * m_eff.to(dev)
-        losses = []
-        for l in range(cfg.local_rounds):
-            idx = torch.zeros((n_own, c_max, steps, batch),
-                              dtype=torch.int64)
+    name = "trainer.scan_rounds" if cfg.scan_rounds else "trainer.rounds"
+    with obs.span(name, rounds=cfg.global_rounds) as sp:
+        for g in range(cfg.global_rounds):
+            m_eff = torch.zeros((n_own, c_max))
             for i, t in enumerate(own):
                 if size[i]:
-                    idx[i, :size[i]] = torch.tensor(
-                        draws.batch_indices(t, g, l))
-            p_stack, loss = fed_client.masked_lps_round(
-                p_stack, x, y, n_per, m_eff, idx.to(dev), loss_fn,
-                optimizer, cfg.client.clip_norm)
-            losses.append(loss)
-        loss_hist[g] = mdist.all_gather_cat(
-            torch.stack(losses).mean(dim=0), group)[:n_clusters].cpu().numpy()
-        p_stack = hier.gps_aggregate_stacked(p_stack, cluster_w, is_common,
-                                             axis=group)
-        full = {k: mdist.all_gather_cat(v, group)
-                for k, v in p_stack.items()}
-        for t in range(n_clusters):
-            if not sizes[t]:
-                acc_hist[g, t] = np.nan
-                continue
-            ex, ey = evals[t]
-            acc_hist[g, t] = models[t].accuracy(
-                {k: v[t] for k, v in full.items()}, ex, ey)
+                    m_eff[i, :size[i]] = torch.tensor(
+                        draws.participation(t, g, cfg.dropout_frac))
+            m_eff = mask * m_eff.to(dev)
+            losses = []
+            for l in range(cfg.local_rounds):
+                idx = torch.zeros((n_own, c_max, steps, batch),
+                                  dtype=torch.int64)
+                for i, t in enumerate(own):
+                    if size[i]:
+                        idx[i, :size[i]] = torch.tensor(
+                            draws.batch_indices(t, g, l))
+                p_stack, loss = fed_client.masked_lps_round(
+                    p_stack, x, y, n_per, m_eff, idx.to(dev), loss_fn,
+                    optimizer, cfg.client.clip_norm)
+                losses.append(loss)
+            loss_hist[g] = mdist.all_gather_cat(
+                torch.stack(losses).mean(dim=0),
+                group)[:n_clusters].cpu().numpy()
+            p_stack = hier.gps_aggregate_stacked(p_stack, cluster_w,
+                                                 is_common, axis=group)
+            full = {k: mdist.all_gather_cat(v, group)
+                    for k, v in p_stack.items()}
+            for t in range(n_clusters):
+                if not sizes[t]:
+                    acc_hist[g, t] = np.nan
+                    continue
+                ex, ey = evals[t]
+                acc_hist[g, t] = models[t].accuracy(
+                    {k: v[t] for k, v in full.items()}, ex, ey)
+        sp.sync(p_stack)
     return acc_hist, loss_hist
 
 
@@ -474,7 +487,9 @@ def train_mthfl(users: Sequence,
     else:
         use_fused = False
 
-    with fed_client.fp32_scope():
+    with fed_client.fp32_scope(), obs.span(
+            "trainer.train_mthfl", fused=use_fused, backend=cfg.backend,
+            rounds=cfg.global_rounds):
         if not use_fused:
             acc, loss = _train_reference(models, _eval_sets(eval_sets, dev),
                                          cfg, setup, lps_params, draws, dev)
@@ -487,5 +502,8 @@ def train_mthfl(users: Sequence,
             acc, loss = _train_fused(models, _eval_sets(eval_sets, dev),
                                      cfg, setup, lps_params, draws, dev,
                                      group)
+    if obs.enabled():
+        obs.count("trainer.runs")
+        obs.count("trainer.global_rounds", cfg.global_rounds)
     return MTHFLHistory(accuracy=acc, train_loss=loss, labels=labels,
                         fused=use_fused)

@@ -9,6 +9,11 @@ fallback: a missing card is an error unless the caller asked for the CPU.
 ``count_launch`` is the one place a launch is counted: in ``LAUNCHES``
 always, and through ``record_dispatch`` in the telemetry registry while
 ``repro_torch.obs`` is enabled.
+
+The kernels have no backward (nor do the reference's Pallas calls): a
+kernel writes into a fresh tensor, whose lack of a ``grad_fn`` would
+cut a gradient without a word.  ``refuse_grad`` makes a wrapper raise
+instead, on a CUDA input that requires grad while grad mode is on.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from repro_torch import obs
 
 __all__ = ["LAUNCHES", "FAMILIES", "resolve_device", "device_kind",
            "on_cuda", "count_launch", "reset_launches", "stream_of",
-           "aligned16", "record_dispatch"]
+           "aligned16", "record_dispatch", "refuse_grad"]
 
 #: Kernel name -> launches since the last ``reset_launches()``.  Each
 #: wrapper adds one where it launches its kernel, and nowhere else.
@@ -77,6 +82,19 @@ def on_cuda(*tensors: torch.Tensor) -> bool:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev.type == "cuda"
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise if a launch of ``kernel`` on ``tensors`` would cut a
+    gradient: grad mode is on and an input requires grad.  Under
+    ``torch.no_grad()`` or ``torch.inference_mode()``, or on inputs that
+    need no gradient, it does nothing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward and an input "
+            f"requires grad; launch it under torch.no_grad(), or train on "
+            f"the plain path (attn_impl='jnp', rec_impl 'chunked' or "
+            f"'scan'), as the reference does")
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -14,7 +14,10 @@ or head dims off the 128 grid, the port's kernels take ``hd`` in
 
 The input dtype alone chooses the kernel (``kernel_entry``): bf16 runs
 on the tensor cores (``mma.sync``, with p split into two bf16 parts so
-that ``p @ v`` keeps fp32 p), fp32 on the CUDA cores.
+that ``p @ v`` keeps fp32 p), fp32 on the CUDA cores.  The kernels
+have no backward: on CUDA inputs that require grad under grad mode the
+wrapper raises (``dispatch.refuse_grad``); the plain version on the CPU
+stays differentiable.
 """
 from __future__ import annotations
 
@@ -51,6 +54,7 @@ def _check(q, k, v, window: int) -> None:
 
 def _launch(q, k, v, causal: bool, window: int,
             out_dtype: torch.dtype) -> torch.Tensor:
+    dispatch.refuse_grad("flash_attention", q, k, v)
     b, s, h, hd = q.shape
     skv = k.shape[1]
     if hd not in HEAD_DIMS:

@@ -19,7 +19,10 @@ keeps fp32 products; the state is fp32 under both.  The reference's
 ``linear_scan`` takes a ``compute_dtype`` that its only caller leaves at
 fp32; the port has none, and its scan steps in fp32.  The scan kernel
 streams its operands through a ring of stages in shared memory, by TMA
-where it can (``linear_scan_plan``).
+where it can (``linear_scan_plan``).  Neither kernel has a backward: on
+CUDA inputs that require grad under grad mode both wrappers raise
+(``dispatch.refuse_grad``); their plain versions on the CPU stay
+differentiable.
 """
 from __future__ import annotations
 
@@ -103,6 +106,7 @@ def wkv_chunked(r, k, v, logw, u, state, *, compute_dtype: str = "bf16"
         out, st = wkv_chunked_ref(r, k, v, logw, u, state,
                                   compute_dtype=compute_dtype)
         return out.to(r.dtype), st
+    dispatch.refuse_grad("wkv_chunked", r, k, v, logw, u, state)
     if hd not in WKV_HEAD_DIMS:
         raise ValueError(f"the wkv kernel takes head dims {WKV_HEAD_DIMS}, "
                          f"got {hd}")
@@ -140,6 +144,7 @@ def linear_scan(log_a, x, h0) -> tuple[torch.Tensor, torch.Tensor]:
                          f"x={tuple(x.shape)} h0={tuple(h0.shape)}")
     if not dispatch.on_cuda(log_a, x, h0):
         return linear_scan_ref(log_a, x, h0)
+    dispatch.refuse_grad("linear_scan", log_a, x, h0)
     b, s, d = x.shape
     log_a, x, h0 = (t.float().contiguous() for t in (log_a, x, h0))
     h = torch.empty_like(x)

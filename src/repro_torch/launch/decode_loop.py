@@ -20,8 +20,12 @@ Three layers, slowest to fastest:
 
 Cluster ids come from ``MembershipEngine.assign`` over
 ``data/tokens.py::token_features`` signatures (``route_requests``).
-The telemetry of the reference (``obs`` spans, events and counters)
-waits for ROADMAP Queue 1 item 12b.
+``ServeEngine.serve`` records the reference's telemetry while
+``repro_torch.obs`` is enabled: the ``serve.run`` span, the
+``serve.requests`` and dispatch counters, the slot-utilization gauge,
+the ``serve.ttft_us`` histogram and the ``wave_admitted``,
+``slot_freed`` and ``request_done`` events.  They read host values the
+loop already holds, so telemetry adds no synchronisation.
 """
 from __future__ import annotations
 
@@ -32,6 +36,7 @@ from typing import Callable, Sequence
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.data.tokens import token_features
 from repro_torch.models import layers as L
 
@@ -405,6 +410,19 @@ class ServeEngine:
         """Run every request to completion, admitting continuously as
         slots free up.  Returns per-request tokens and latencies and the
         counted dispatches and slot utilization."""
+        with obs.span("serve.run", n_requests=len(requests),
+                      slots=self.cfg.slots) as sp:
+            stats = sp.sync(self._serve(requests))
+        if obs.enabled():
+            obs.count("serve.requests", len(stats.results))
+            obs.count("serve.prefill_dispatches", stats.prefill_dispatches)
+            obs.count("serve.decode_dispatches", stats.decode_dispatches)
+            obs.gauge("serve.slot_utilization", stats.slot_utilization)
+            for r in stats.results:
+                obs.observe("serve.ttft_us", r.ttft_s * 1e6)
+        return stats
+
+    def _serve(self, requests: Sequence[Request]) -> ServeStats:
         self._check(requests)
         scfg, dev = self.cfg, self.device
         s_slots, w, p = scfg.slots, scfg.wave, scfg.max_prompt
@@ -454,6 +472,9 @@ class ServeEngine:
                     ttft[i] = now
                     if requests[i].gen == 1:
                         done[i] = now      # complete; never occupies a slot
+                        if obs.enabled():
+                            obs.event("request_done", request=i,
+                                      ttft_s=now, done_s=now, n_tokens=1)
                         continue
                     s = int(free[j])
                     slot_ids[j] = s
@@ -463,6 +484,10 @@ class ServeEngine:
                     cur_tok[s] = first[j]
                     cids[s] = requests[i].cluster
                 slot_state = self._admit(slot_state, wave_state, slot_ids)
+                if obs.enabled():
+                    obs.event("wave_admitted", round=rounds,
+                              n_admitted=len(take),
+                              free_slots=int((~active).sum()))
                 continue                   # admit again while possible
             if not active.any():
                 if not pending:
@@ -486,6 +511,12 @@ class ServeEngine:
                     done[i] = now
                     active[s] = False
                     slot_req[s] = -1
+                    if obs.enabled():
+                        obs.event("slot_freed", slot=int(s), request=i,
+                                  round=rounds)
+                        obs.event("request_done", request=i,
+                                  ttft_s=float(ttft[i]), done_s=now,
+                                  n_tokens=len(out_toks[i]))
                 else:
                     cur_tok[s] = nxt[s]
 

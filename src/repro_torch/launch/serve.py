@@ -14,16 +14,18 @@ encoder-decoder arch exits with the reference's message).  Mirrors
 (``greedy_decode``) on the same request mix, one cluster at a time; the
 default ``continuous`` mode runs the slot scheduler with chunked prefill
 and per-cluster heads.  Weights are random, drawn from ``--seed``.
-``--events`` (telemetry) waits for ROADMAP Queue 1 item 12b.
+``--events PATH`` turns ``repro_torch.obs`` on for the run and writes its
+event stream (``wave_admitted``, ``slot_freed``, ``request_done``) to
+``PATH`` as JSONL, in both modes, as the reference's flag does.
 """
 from __future__ import annotations
 
 import argparse
-import time
 
 import numpy as np
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import get_arch
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.launch.decode_loop import (ClusterHeads, Request,
@@ -61,6 +63,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--events", default=None,
+                    help="record the obs event stream (wave_admitted/"
+                         "slot_freed/request_done) to this JSONL")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default; raises without a card) or cpu")
@@ -70,6 +75,9 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    if args.events:
+        obs.reset()
+        obs.enable()
     cfg = get_arch(args.arch, reduced=bool(args.reduced))
     m = get_model(cfg)
     if m.is_encdec:
@@ -85,7 +93,7 @@ def main(argv=None) -> None:
     if args.mode == "static":
         # pad everything to a uniform batch, per-token dispatch, one
         # cluster at a time
-        t0 = time.perf_counter()
+        t0 = obs.now()
         for t in range(args.clusters):
             batch = [r for r in reqs if r.cluster == t]
             if not batch:
@@ -102,8 +110,9 @@ def main(argv=None) -> None:
                   f"({stats.prefill_dispatches} dispatches) ttft "
                   f"{stats.ttft_s * 1e3:.1f}ms decode {stats.tok_per_s:.0f} "
                   f"tok/s")
-        wall = time.perf_counter() - t0
+        wall = obs.now() - t0
         print(f"static: {total_tok} tok (upper bound) in {wall:.2f}s")
+        _save_events(args.events)
         return
 
     scfg = ServeConfig(slots=args.slots, wave=args.wave,
@@ -122,6 +131,14 @@ def main(argv=None) -> None:
           f"({stats.prefill_scan_steps} chunks each), decode "
           f"dispatches {stats.decode_dispatches}, programs {stats.traces}")
     print("sample:", stats.results[0].tokens.tolist()[:24])
+    _save_events(args.events)
+
+
+def _save_events(path) -> None:
+    if path:
+        obs.save_events(path)
+        print(f"wrote {len(obs.events())} event(s) to {path}")
+        obs.disable()
 
 
 if __name__ == "__main__":

@@ -18,17 +18,23 @@ then generates one token against that memory and the decoder's own
 self-attention cache.  The state is the reference's: ``mem_k``,
 ``mem_v`` ``(n_dec, B, S_src, K, hd)``, ``self`` ``{k, v: (n_dec, B,
 self_len, K, hd)}`` (updated in place) and a Python-int ``length``.
+
+Training is ``models/transformer.py``'s: ``model.requires_grad_(True)``
+turns gradients on, ``forward`` and ``loss_fn`` are differentiable on
+the plain attention path, and ``cfg.remat`` wraps each encoder and
+decoder layer in ``torch.utils.checkpoint`` while a gradient is taken.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import Params, _dt, embed
+from repro_torch.models.transformer import Params, _dt, embed, remat_active
 
 __all__ = ["EncDec", "init", "from_trees", "encode", "forward", "loss_fn",
            "init_decode_state", "decode_state_from_memory", "decode_step"]
@@ -115,9 +121,16 @@ def encode(cfg: ArchConfig, model: EncDec, frames: torch.Tensor
     h = L.mm(frames.to(_dt(cfg.act_dtype)), model.frame_proj)
     positions = _positions(h.shape[0], h.shape[1], h.device)
     acfg = _acfg(cfg, False)
-    for bp in model.enc:
+
+    def body(h, bp):
         h = h + A.attention(bp.attn, acfg, L.rms_norm(h, bp.ln1), positions)
-        h = h + L.mlp_apply(bp.ffn, L.rms_norm(h, bp.ln2), cfg.mlp_variant)
+        return h + L.mlp_apply(bp.ffn, L.rms_norm(h, bp.ln2),
+                               cfg.mlp_variant)
+
+    remat = remat_active(cfg, model)
+    for bp in model.enc:
+        h = checkpoint(body, h, bp, use_reentrant=False) if remat \
+            else body(h, bp)
     return L.rms_norm(h, model.enc_norm)
 
 
@@ -131,12 +144,19 @@ def forward(cfg: ArchConfig, model: EncDec, batch: dict,
     h = embed(cfg, model, tokens)
     positions = _positions(tokens.shape[0], tokens.shape[1], h.device)
     self_cfg, cross_cfg = _acfg(cfg, True), _acfg(cfg, False)
-    for bp in model.dec:
+
+    def body(h, bp, memory):
         h = h + A.attention(bp.self, self_cfg, L.rms_norm(h, bp.ln1),
                             positions)
         h = h + A.attention(bp.cross, cross_cfg, L.rms_norm(h, bp.ln2),
                             positions, kv_x=memory)
-        h = h + L.mlp_apply(bp.ffn, L.rms_norm(h, bp.ln3), cfg.mlp_variant)
+        return h + L.mlp_apply(bp.ffn, L.rms_norm(h, bp.ln3),
+                               cfg.mlp_variant)
+
+    remat = remat_active(cfg, model)
+    for bp in model.dec:
+        h = checkpoint(body, h, bp, memory, use_reentrant=False) if remat \
+            else body(h, bp, memory)
     if last_only:
         h = h[:, -1:, :]
     h = L.rms_norm(h, model.final_norm)

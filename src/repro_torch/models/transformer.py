@@ -22,8 +22,17 @@ run in a loop.  The functions below take the ``ArchConfig`` and the
 
 A decode state is ``{"length": ..., "layers": [one state per layer]}``;
 ``length`` is a Python int (uniform batch) or a per-row ``(B,)`` int32
-tensor (slot serving).  KV caches are updated in place.  Parameters
-carry no gradient: the train path waits for ROADMAP Queue 1 item 15.
+tensor (slot serving).  KV caches are updated in place.
+
+Parameters are built with ``requires_grad=False``, so that serving
+records no graph; the train path (``launch/train.py``) turns gradients
+on with ``model.requires_grad_(True)``.  ``forward`` and ``loss_fn`` are
+differentiable on the plain paths (``attn_impl="jnp"``, ``rec_impl``
+``chunked`` or ``scan``), as the reference trains; the kernels have no
+backward and raise on inputs that need one.  With ``cfg.remat`` set and
+a gradient to take, each layer of the pattern groups runs under
+``torch.utils.checkpoint`` (the reference's ``jax.checkpoint`` of a
+group), which changes no value.
 
 ``batch``: {"tokens" (B, S), "labels" (B, S)}; VLM fusion adds
 {"patch_embeds" (B, P, d), "patch_mask" (B, S) bool}: masked positions
@@ -36,6 +45,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.dispatch import resolve_device
@@ -48,7 +58,8 @@ from repro_torch.models import rwkv6 as R
 __all__ = ["LM", "Block", "init", "from_trees", "forward", "loss_fn",
            "init_decode_state", "decode_step", "decode_hidden",
            "prefill_chunk", "block_apply", "embed", "layer_kinds",
-           "attn_config", "rwkv_config", "rglru_config", "moe_config"]
+           "attn_config", "rwkv_config", "rglru_config", "moe_config",
+           "remat_active"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -300,6 +311,13 @@ def embed(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
     return h
 
 
+def remat_active(cfg: ArchConfig, model: nn.Module) -> bool:
+    """Whether a forward of ``model`` rematerialises its layers: the
+    config asks for it and a gradient is being taken."""
+    return cfg.remat and torch.is_grad_enabled() and any(
+        p.requires_grad for p in model.parameters())
+
+
 def forward(cfg: ArchConfig, model: LM, batch: dict, last_only: bool = False
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """``batch["tokens"] (B, S)`` (and a fusion config's
@@ -312,8 +330,15 @@ def forward(cfg: ArchConfig, model: LM, batch: dict, last_only: bool = False
     b, s = tokens.shape
     positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for block in model.layers:
-        h, aux_l = block_apply(cfg, block.kind, block, h, positions)
+    # the reference rematerialises its pattern groups, not the remainder
+    n_remat = cfg.n_groups * len(cfg.block_pattern) \
+        if remat_active(cfg, model) else 0
+    for i, block in enumerate(model.layers):
+        if i < n_remat:
+            h, aux_l = checkpoint(block_apply, cfg, block.kind, block, h,
+                                  positions, use_reentrant=False)
+        else:
+            h, aux_l = block_apply(cfg, block.kind, block, h, positions)
         aux = aux + aux_l
     if last_only:
         h = h[:, -1:, :]

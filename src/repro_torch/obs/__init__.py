@@ -27,9 +27,11 @@ fields; gauges and float fields within the tolerance the port's parity
 test for that quantity uses (1e-5 for ``proto_shift``,
 ``unassigned_frac`` and ``label_agreement``); and ``comm.*`` gauges
 exactly equal.  The port's own, and not compared: ``dur_us``, ``ts_us``,
-``t_us``, ``seq``, span ids, thread names, and meta or event values that
-name a backend or impl (``"torch"`` where the reference has ``"jnp"``
-or ``"pallas"``).  ``tests/test_torch_obs.py`` holds it.
+``t_us``, ``seq``, span ids, thread names, event fields that are
+seconds of a run's wall clock (serving's ``ttft_s`` and ``done_s``,
+floats in both), and meta or event values that name a backend or impl
+(``"torch"`` where the reference has ``"jnp"`` or ``"pallas"``).
+``tests/test_torch_obs.py`` holds it.
 
     from repro_torch import obs
     obs.enable()

@@ -1014,6 +1014,75 @@ class TestLMKernelsOnCard:
 
 
 @pytest.mark.gpu
+class TestTrainingOnCard:
+    """LM training on the card: the kernels refuse inputs that require
+    grad under grad mode and launch under ``no_grad``; a REDUCED train
+    step on the card matches the same step on the CPU."""
+
+    def test_kernels_refuse_grad_and_launch_without(self, cuda_device):
+        g = torch.Generator(device=cuda_device).manual_seed(0)
+
+        def r(*shape):
+            return torch.randn(*shape, generator=g, device=cuda_device)
+
+        calls = {
+            "flash_attention": lambda x: flash_attention(
+                x(1, 64, 2, 64), x(1, 64, 2, 64), x(1, 64, 2, 64)),
+            "wkv_chunked": lambda x: wkv_chunked(
+                x(1, 64, 2, 64), x(1, 64, 2, 64), x(1, 64, 2, 64),
+                -x(1, 64, 2, 64).abs(), x(2, 64), x(1, 2, 64, 64)),
+            "linear_scan": lambda x: linear_scan(
+                -x(1, 64, 32).abs(), x(1, 64, 32), x(1, 32)),
+        }
+        for name, call in calls.items():
+            dispatch.reset_launches()
+            with pytest.raises(RuntimeError, match=f"{name}: the CUDA "
+                                                   f"kernel has no backward"):
+                call(lambda *sh: r(*sh).requires_grad_(True))
+            assert dispatch.LAUNCHES[name] == 0
+            with torch.no_grad():
+                out = call(lambda *sh: r(*sh).requires_grad_(True))
+            call(r)
+            torch.cuda.synchronize()
+            assert dispatch.LAUNCHES[name] == 2, name
+            out = out[0] if isinstance(out, tuple) else out
+            assert out.grad_fn is None and torch.isfinite(out).all()
+
+    def test_reduced_train_step_matches_cpu(self, cuda_device):
+        """The first step of ``launch/train.py`` on REDUCED fp32 qwen3:
+        the loss and the gradients' global norm on the card within 1e-4 x
+        max(1, |loss|) (relative for the norm) of the CPU's, on the same
+        weights and batch; the step runs and leaves finite parameters."""
+        from repro_torch import optim
+        from repro_torch.configs.base import get_arch
+        from repro_torch.launch import train as launch_train
+        from repro_torch.models.registry import get_model
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        cfg = get_arch("qwen3_1_7b", reduced=True)
+        m = get_model(cfg)
+        raw = next(launch_train.batch_stream(cfg, 2, 64))
+        out = []
+        for dev in (torch.device("cpu"), cuda_device):
+            model = m.init(0, device="cpu").to(dev)
+            model.requires_grad_(True)
+            batch = launch_train.make_batch(cfg, raw, 0, dev)
+            loss = m.loss_fn(model, batch)
+            grads = torch.autograd.grad(loss, list(model.parameters()))
+            out.append((float(loss),
+                        float(optim.global_norm(dict(enumerate(grads))))))
+            opt = launch_train.make_optimizer(3e-3, 10)
+            state = opt.init(dict(model.named_parameters()))
+            for _ in range(2):
+                state, _ = launch_train.train_step(m, model, opt, state,
+                                                   batch)
+            assert all(torch.isfinite(p).all() for p in model.parameters())
+        (l_c, n_c), (l_g, n_g) = out
+        bar = 1e-4 * max(1.0, abs(l_c))
+        assert abs(l_g - l_c) <= bar and abs(n_g - n_c) <= bar * n_c
+
+
+@pytest.mark.gpu
 class TestTelemetryOnCard:
     """``repro_torch.obs`` on the card: a span synchronises the devices
     of the tensors it was given before it reads the clock, and

@@ -290,6 +290,11 @@ def test_init_matches_reference_statistics(arch):
             assert 0.9 < ratio < 1.1, (name, ratio)
             assert float(p.abs().max()) <= 1.05 * float(q.abs().max()), name
     assert ref_params["embed"].shape == tuple(model.embed.shape)
+    # the train path's switch reaches every parameter, and only then
+    model.requires_grad_(True)
+    assert all(p.requires_grad for p in model.parameters())
+    assert sum(1 for _ in model.parameters()) == len(got)
+    assert not any(p.requires_grad for p in ref_model.parameters())
 
 
 def test_init_defaults_to_cuda():

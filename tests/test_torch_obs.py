@@ -14,9 +14,11 @@ Three parts:
     packages; ``record_ledger`` on equal ledgers gives equal ``comm.*``
     gauges; the two launchers print the same text.
   * The parity contract (``repro_torch/obs/__init__.py``) on seeded numpy
-    inputs, for the dense, blockwise and raw ``one_shot_clustering`` runs
-    and membership serving (seed, assign, admit, evict, drift_stats, a
-    forced and a drift-tripped re-cluster): the same span names in the
+    inputs, for the dense, blockwise and raw ``one_shot_clustering`` runs,
+    membership serving (seed, assign, admit, evict, drift_stats, a
+    forced and a drift-tripped re-cluster), LM serving (``ServeEngine``
+    and ``launch/serve.py --events``) and ``train_mthfl`` (fused, loop,
+    ``scan_rounds``): the same span names in the
     same parent tree with the same meta keys; the same counter keys and
     values; the same gauge and histogram keys and histogram counts; the
     same event kinds in the same order with the same field names; equal
@@ -24,8 +26,9 @@ Three parts:
     tolerance of the port's parity tests for ``proto_shift``,
     ``unassigned_frac`` and ``label_agreement``); ``comm.*`` gauges
     exactly equal.  Not compared, as the contract says: durations,
-    timestamps, sequence numbers, span ids, thread names, and the values
-    that name a backend or impl.  ``retrace_count`` is the port's own
+    timestamps, sequence numbers, span ids, thread names, event fields
+    that are seconds of a run's wall clock (``ttft_s``, ``done_s``), and
+    the values that name a backend or impl.  ``retrace_count`` is the port's own
     too: the reference counts jit traces, the port kernel-library builds
     (none on the CPU).
 
@@ -62,6 +65,9 @@ from repro_torch.launch import obs as launch_obs
 FLOAT_TOL = 1e-5
 #: Meta and event fields whose values name a backend or impl.
 OWN_VALUES = {"backend", "impl"}
+#: Event fields that are seconds of a run's wall clock: present in both,
+#: floats in both, their values each package's own.
+WALL_FIELDS = {"ttft_s", "done_s"}
 #: Counters that are each package's own: jit traces in the reference,
 #: kernel-library builds in the port.
 OWN_COUNTERS = {"retrace_count"}
@@ -682,8 +688,11 @@ def assert_parity(port: dict, ref: dict) -> None:
         [e["kind"] for e in ref["events"]]
     for p, r in zip(port["events"], ref["events"]):
         assert p.keys() == r.keys(), p["kind"]
-        for k in p.keys() - {"seq", "t_us", "kind"} - OWN_VALUES:
+        for k in p.keys() - {"seq", "t_us", "kind"} - OWN_VALUES \
+                - WALL_FIELDS:
             _close(p[k], r[k], f"{p['kind']} {k}")
+        for k in p.keys() & WALL_FIELDS:
+            assert type(p[k]) is type(r[k]) is float, f"{p['kind']} {k}"
 
 
 def _feats_oneshot():
@@ -805,6 +814,105 @@ class TestParityContract:
         assert eng.state.n_reclusters == 2
 
 
+class TestServingAndTrainerRecords:
+    """Item 12b: LM serving's and the MT-HFL trainer's records."""
+
+    def test_serve_engine(self):
+        """``tests/test_torch_serve.py``'s staggered ragged mix (a
+        request of one token among them) on the tiny attention model:
+        the reference's span, counters, gauge, histogram and events, and
+        the same tokens with telemetry on and off."""
+        from _torch_lm_support import build_pair
+        from repro.launch import decode_loop as ref_dl
+        from repro_torch.launch import decode_loop as dl
+        from test_torch_serve import SCFG, _ref_requests, ragged_requests
+
+        ref_m, ref_params, ref_heads, m, params, heads = build_pair(
+            "tiny-attn", n_clusters=3)
+        reqs = ragged_requests(np.random.default_rng(3), 9, m.cfg.vocab, 3,
+                               staggered=True)
+        assert any(r.gen == 1 for r in reqs)
+        engine = dl.ServeEngine(m, params, heads, dl.ServeConfig(**SCFG))
+        ref_engine = ref_dl.ServeEngine(ref_m, ref_params, ref_heads,
+                                        ref_dl.ServeConfig(**SCFG))
+        port, stats = _record(obs, lambda: engine.serve(reqs))
+        ref, _ = _record(ref_obs, lambda: ref_engine.serve(
+            _ref_requests(reqs)))
+        for rec in (port, ref):   # jit traces are the reference's own
+            rec["snap"]["counters"].pop("retrace_count", None)
+        assert_parity(port, ref)
+        assert [r["name"] for r in port["trace"]] == ["serve.run"]
+        counters = port["snap"]["counters"]
+        assert counters["serve.requests"] == len(reqs)
+        assert counters["serve.prefill_dispatches"] == \
+            stats.prefill_dispatches
+        assert counters["serve.decode_dispatches"] == stats.decode_dispatches
+        assert port["snap"]["histograms"]["serve.ttft_us"]["count"] == \
+            len(reqs)
+        kinds = [e["kind"] for e in port["events"]]
+        assert kinds.count("request_done") == len(reqs)
+        assert kinds.count("wave_admitted") == stats.prefill_dispatches
+        assert kinds.count("slot_freed") == sum(r.gen > 1 for r in reqs)
+        obs.reset()
+        off = engine.serve(reqs)
+        assert obs.trace_records() == [] and obs.events() == []
+        for a, b in zip(off.results, stats.results):
+            np.testing.assert_array_equal(a.tokens, b.tokens)
+
+    @pytest.mark.parametrize("fused,scan_rounds", [
+        (True, False), (True, True), (False, False)],
+        ids=["fused", "fused-scan_rounds", "loop"])
+    def test_train_mthfl(self, fused, scan_rounds):
+        """``tests/test_torch_trainer.py``'s T2-ragged layout with the
+        reference's draws injected: the spans, their meta and the
+        counters; the same history with telemetry off."""
+        import dataclasses
+
+        from _torch_fed_support import (ReferenceDraws, mlp_to_port,
+                                        port_evals, port_mlp_models,
+                                        ref_mlp_models)
+        from repro.fed import trainer as ref_trainer
+        from repro_torch import convert
+        from repro_torch.fed import trainer as ftrainer
+        from repro_torch.models import mlp
+        from test_trainer_parity import (BASE_CFG, LAYOUTS, MCFG, NCLS, M,
+                                         make_evals, make_users)
+
+        layout = LAYOUTS["T2-ragged"]
+        users, labels = make_users(layout)
+        n = len(layout)
+        cc = [list(range(NCLS))] * n
+        ref_cfg = dataclasses.replace(BASE_CFG, scan_rounds=scan_rounds)
+        pmcfg = mlp.PaperMLPConfig(m=M, hidden=8, n_classes=NCLS)
+
+        def port_run():
+            draws = ReferenceDraws(users, labels, ref_mlp_models(MCFG, n),
+                                   ref_cfg, cc, mlp_to_port(MCFG))
+            return ftrainer.train_mthfl(
+                users, labels, port_mlp_models(pmcfg, n),
+                port_evals(make_evals(n)),
+                convert.mthfl_config_from_reference(ref_cfg),
+                cluster_classes=cc, fused=fused, draws=draws, device="cpu")
+
+        port, hist = _record(obs, port_run)
+        ref, _ = _record(ref_obs, lambda: ref_trainer.train_mthfl(
+            users, labels, ref_mlp_models(MCFG, n), make_evals(n), ref_cfg,
+            cluster_classes=cc, fused=fused))
+        assert_parity(port, ref)
+        inner = ["trainer.scan_rounds" if scan_rounds else "trainer.rounds"]
+        assert [r["name"] for r in port["trace"]] == \
+            ["trainer.train_mthfl"] + (inner if fused else [])
+        assert port["trace"][0]["meta"]["fused"] is fused
+        counters = port["snap"]["counters"]
+        assert counters["trainer.runs"] == 1
+        assert counters["trainer.global_rounds"] == BASE_CFG.global_rounds
+        obs.reset()
+        off = port_run()
+        assert obs.trace_records() == []
+        np.testing.assert_array_equal(off.train_loss, hist.train_loss)
+        np.testing.assert_array_equal(off.accuracy, hist.accuracy)
+
+
 # ------------------------------------------------------------ launchers
 
 class TestLaunchers:
@@ -906,6 +1014,40 @@ class TestLaunchers:
         port, ref = obs.load_events(port_p), ref_obs.load_events(ref_p)
         assert [e["kind"] for e in port] == [e["kind"] for e in ref]
         assert [e.keys() for e in port] == [e.keys() for e in ref]
+
+
+    @pytest.mark.parametrize("mode", ["continuous", "static"])
+    def test_serve_events_match_reference(self, tmp_path, capsys,
+                                          monkeypatch, mode):
+        """``launch/serve.py --events`` in both launchers on the same
+        request mix (numpy-drawn): the same event kinds, fields and
+        integer values (the events depend on the schedule, not on the
+        weights, which differ between the launchers)."""
+        from repro.launch import serve as ref_launch_serve
+        from repro_torch.launch import serve as launch_serve
+
+        args = ["--requests", "6", "--prompt-len", "16", "--gen", "4",
+                "--prefill-chunk", "8", "--mode", mode]
+        port_p, ref_p = tmp_path / "port.jsonl", tmp_path / "ref.jsonl"
+        launch_serve.main(args + ["--device", "cpu", "--events",
+                                  str(port_p)])
+        assert not obs.enabled()
+        monkeypatch.setattr("sys.argv", ["serve"] + args + [
+            "--events", str(ref_p)])
+        ref_launch_serve.main()
+        port, ref = obs.load_events(port_p), ref_obs.load_events(ref_p)
+        out = capsys.readouterr().out
+        assert out.count(f"wrote {len(ref)} event(s)") == 2
+        assert [e["kind"] for e in port] == [e["kind"] for e in ref]
+        for p, r in zip(port, ref):
+            assert p.keys() == r.keys()
+            for k in p.keys() - {"seq", "t_us"} - WALL_FIELDS:
+                assert p[k] == r[k], (p["kind"], k)
+        if mode == "continuous":
+            assert {e["kind"] for e in port} == {
+                "wave_admitted", "slot_freed", "request_done"}
+        else:
+            assert port == []
 
 
 class TestShardedRecords:

@@ -117,7 +117,8 @@ def test_port_imports_neither_jax_nor_reference():
                  "models.cnn", "models.mlp", "configs.paper_cnn",
                  "configs.paper_mlp", "fed.fedavg", "fed.hierarchy",
                  "fed.client", "fed.trainer", "fed.ifca", "obs", "obs.core",
-                 "obs.events", "obs.metrics", "obs.trace", "launch.obs"):
+                 "obs.events", "obs.metrics", "obs.trace", "launch.obs",
+                 "checkpoint", "checkpoint.ckpt", "launch.train"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
