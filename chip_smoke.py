@@ -124,6 +124,25 @@ two-level protocol and the sharded paths:
        (e) phase 3f's serving cell with telemetry off, on and off: the
        same tokens, the ``serve.*`` records; (f) phase 3i(b)'s fused run
        with the trainer's records.
+  [3r] (a) ``ClusterEngine("torch").spectral`` on phase 3's R on the card
+       and the numpy backend on the host: the same partition, each one's
+       accuracy beside the HAC labels', the card's ms by CUDA events;
+       (b) ``perturb_eigenvectors`` at sigma 0.01 and 0.1 on phase 3's
+       signatures (sigma 0: unperturbed, R bit-equal to phase 3's), then
+       R through the eigproject kernel and HAC; ``subsample_rows`` at 64
+       and 128 of each user's 256 rows, then the Grams, the top-k by
+       subspace iteration, R and HAC: the accuracy of each point;
+       (c) the tuner (``kernels/tuning.py``) over the run-time plan fields
+       of ``assign_wave`` (bf16, serving and landmark shapes),
+       ``assign_one``, ``gram_project`` and ``linear_scan`` at phase 4's
+       shapes: each valid candidate held to the plain version at phase
+       4's tolerance and timed (``device_ms``) beside the default plan,
+       an invalid one raising and skipped; the winners in a temporary
+       cache file, launched from it, and a cached plan that does not fit
+       raising; (d) ``detect_hardware()`` naming the ``h100`` entry, and
+       ``kernel_roofline`` for gram and eigproject at the dense cell's
+       shape beside phase 4's bounds.  Phases 1-5 run with no tuner cache
+       (``REPRO_TORCH_TUNE_CACHE`` unset).
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -357,6 +376,14 @@ TRAIN_LM_SHAPE, TRAIN_LM_STEPS, TRAIN_LM_LR = (2, 1024), 10, 3e-3
 TRAIN_LM_CHECK_ARCHS = ("qwen3_1_7b", "rwkv6_1_6b", "phi3_5_moe")
 TRAIN_LM_CHECK_SHAPE = (2, 64)
 RESUME_LAYERS, RESUME_AT = 4, 5
+# Robustness (phase 3r(b)): noise on the shared eigenvectors, and rows of
+# each user's 256 its Gram is estimated from, as the reference's
+# benchmarks/bench_robustness.py sweeps them (its seeds).
+ROBUST_SIGMAS, ROBUST_NOISE_SEED = (0.0, 0.01, 0.1), 17
+ROBUST_ROWS, ROBUST_ROW_SEED = (64, 128), 3
+# The tuner's cache file (phase 3r(c) sets it to a temporary file; phases
+# 1-5 run with it unset, on the wrappers' default plans).
+TUNE_ENV = "REPRO_TORCH_TUNE_CACHE"
 
 
 class SmokeFailure(RuntimeError):
@@ -1016,6 +1043,8 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    # Phases 1-5 run the wrappers' default launch plans: no tuner cache.
+    os.environ.pop(TUNE_ENV, None)
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if args.resume_at_published_widths:
         return resume_at_published_widths(torch)
@@ -1034,7 +1063,8 @@ def main(argv=None) -> int:
     from repro_torch.core.oneshot import one_shot_clustering
     from repro_torch.core.signature_engine import (SignatureConfig,
                                                    SignatureEngine,
-                                                   subspace_residual)
+                                                   subspace_residual,
+                                                   topk_spectrum)
     from repro_torch.data.features import FeatureConfig
     from repro_torch.data.partition import (CIFAR_TASKS,
                                             paper_cifar_two_task)
@@ -1109,6 +1139,9 @@ def main(argv=None) -> int:
     from repro_torch.models import cnn
     from repro_torch import optim as port_optim
     from repro_torch.launch import train as launch_train
+    from repro_torch.kernels import tuning
+    from repro_torch.kernels.gram_project import ops as gp_ops
+    from repro_torch.launch import roofline
 
     dev = torch.device("cuda", 0)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3837,6 +3870,322 @@ def main(argv=None) -> int:
         counters=counters_f)
     del raw_users
     phase_done("phase 3q")
+
+    # -- Phase 3r: spectral clustering, robustness, the tuner, roofline -----
+    print(f"[3r] spectral clustering on phase 3's R; noise and row "
+          f"subsampling on the dense cell; the tile tuner at phase 4's "
+          f"shapes; the roofline model ({card})")
+    p3r = summary["phase3r"] = {"card": card}
+    part_s = p3r["part_s"] = {}
+    t_part = time.perf_counter()
+
+    # (a) ClusterEngine("torch").spectral on the card against the numpy
+    # backend on the host, both from seed 0: the same partition.
+    eng_r = ClusterEngine(ccfg, device=dev)
+    eng_r.spectral(big_r, TASKS, rng=0)            # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    spec_card = eng_r.spectral(big_r, TASKS, rng=0)
+    end.record()
+    torch.cuda.synchronize()
+    spec_ms = start.elapsed_time(end)
+    t0 = time.perf_counter()
+    spec_host = ClusterEngine(ClusterConfig(backend="numpy")).spectral(
+        big_r.cpu().numpy(), TASKS, rng=0)
+    spec_host_s = time.perf_counter() - t0
+    spec_labels = spec_card.cpu().numpy()
+    spec_ari = clu.adjusted_rand_index(spec_labels, spec_host)
+    acc_spec = {"card": clu.clustering_accuracy(spec_labels, task_ids),
+                "host": clu.clustering_accuracy(spec_host, task_ids),
+                "hac": clu.clustering_accuracy(dense_labels, task_ids)}
+    print(f"  (a) spectral: card {spec_ms:.3f} ms (CUDA events), host "
+          f"{spec_host_s:.3f} s; ARI card against host {spec_ari:.4f}; "
+          f"accuracy card {acc_spec['card']:.1%}, host "
+          f"{acc_spec['host']:.1%}, HAC (phase 3) {acc_spec['hac']:.1%}")
+    require(spec_card.dtype == torch.int32 and spec_card.device == dev
+            and spec_labels.shape == (N_USERS,),
+            "3r(a): spectral labels are not int32 (N,) on the card")
+    require(spec_ari == 1.0, "3r(a): the card's spectral partition differs "
+            "from the host's")
+    p3r["spectral"] = dict(card_ms=spec_ms, host_s=spec_host_s,
+                           ari_card_host=spec_ari, accuracy=acc_spec)
+    part_s["a"] = time.perf_counter() - t_part
+
+    # (b) Noise on the shared eigenvectors, then R through the eigproject
+    # kernel and HAC; sigma 0 leaves them as they are, as the reference's
+    # benchmark does (benchmarks/bench_robustness.py), and must give phase
+    # 3's R bit for bit.  Then each user's Gram from a subsample of its
+    # rows (seeds spawned per user, as there), the top-k by the raw path's
+    # subspace iteration (the batched eigh of 1024 Grams would take 19 s a
+    # point), R and HAC.
+    t_part = time.perf_counter()
+    gen_p = torch.Generator(device=dev).manual_seed(ROBUST_NOISE_SEED)
+
+    def robust_accuracy(g_, lam_, v_):
+        r_ = sim.symmetrize(sim.relevance_matrix(g_, lam_, v_,
+                                                 cfg.eig_floor))
+        labels_ = eng_r.labels(r_, TASKS).cpu().numpy()
+        return r_, clu.clustering_accuracy(labels_, task_ids)
+
+    dispatch.reset_launches()
+    noise_acc = {}
+    for sigma in ROBUST_SIGMAS:
+        v_s = v if sigma == 0 else sim.perturb_eigenvectors(v, sigma, gen_p)
+        r_s, noise_acc[sigma] = robust_accuracy(grams, lam, v_s)
+        if sigma == 0:
+            same_r0 = torch.equal(r_s, big_r)
+    # At sigma 0 the noise adds nothing: without renormalising, V's own
+    # bits; with it, V's columns over their norms (the card's eigh leaves
+    # those norms off 1 by more than 1e-6, so not V itself).
+    v_norms = torch.linalg.vector_norm(v, dim=-2, keepdim=True)
+    norm_gap = float((v_norms - 1.0).abs().max())
+    v0_gap = max_err(torch, sim.perturb_eigenvectors(v, 0.0, gen_p),
+                     v / v_norms)
+    same_v0 = torch.equal(sim.perturb_eigenvectors(v, 0.0, gen_p,
+                                                   renormalize=False), v)
+    launches_rb = dict(dispatch.LAUNCHES)
+    sub_acc = {}
+    for rows in ROBUST_ROWS:
+        seeds = np.random.SeedSequence(ROBUST_ROW_SEED).spawn(N_USERS)
+        xs = torch.from_numpy(np.stack([
+            sim.subsample_rows(f, rows, seed=s)
+            for f, s in zip(feats, seeds)])).to(dev)
+        g_m = sim.batched_gram(xs)
+        lam_m, v_m = topk_spectrum(g_m, TOP_K)
+        _, sub_acc[rows] = robust_accuracy(g_m, lam_m, v_m)
+        del xs, g_m, lam_m, v_m
+    print(f"  (b) noise: sigma 0 R bit-equal to phase 3's {same_r0}; "
+          f"perturb_eigenvectors at sigma 0: V's bits {same_v0} unnormalised"
+          f", within {v0_gap:.3e} of V over its column norms (which are "
+          f"within {norm_gap:.3e} of 1); "
+          f"accuracy " + ", ".join(f"sigma {s:g} {a:.1%}"
+                                   for s, a in noise_acc.items())
+          + "; subsampled rows " + ", ".join(
+              f"{m} of {N_SAMPLES} {a:.1%}" for m, a in sub_acc.items())
+          + f"; launches (noise) eigproject {launches_rb['eigproject']}, "
+          f"linkage {launches_rb['linkage']}")
+    require(same_r0, "3r(b): sigma 0 does not give phase 3's R")
+    require(same_v0 and v0_gap <= 1e-6, f"3r(b): perturb_eigenvectors at "
+            f"sigma 0 is not the identity (up to the column norms; "
+            f"{v0_gap:.3e})")
+    require(launches_rb["eigproject"] == len(ROBUST_SIGMAS)
+            and launches_rb["linkage"] == len(ROBUST_SIGMAS),
+            "3r(b): the sweep did not launch eigproject and linkage once a "
+            "point")
+    p3r["robustness"] = dict(sigma0_r_bit_equal=same_r0,
+                             sigma0_v_gap=v0_gap, v_norm_gap=norm_gap,
+                             noise_accuracy={str(s): a for s, a
+                                             in noise_acc.items()},
+                             subsample_accuracy={str(m): a for m, a
+                                                 in sub_acc.items()})
+    part_s["b"] = time.perf_counter() - t_part
+
+    # (c) The tuner over the run-time plan fields at phase 4's shapes: the
+    # default and a few valid candidates, each held to its plain version at
+    # phase 4's tolerance and timed by device_ms, and one that does not
+    # fit, which must raise and be skipped.  The sweep runs in a
+    # temporary cache file; the wrappers must then launch the winners
+    # from it, and an entry that does not fit must raise.  The file and
+    # the memory cache are gone before phase 4.
+    t_part = time.perf_counter()
+    tune_dir = tempfile.mkdtemp(prefix="chip_smoke_tune_")
+    tuning.clear_cache()
+    os.environ[TUNE_ENV] = f"{tune_dir}/tune.json"
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    sweeps = []
+
+    def sweep(tag, kernel, dims, call, check, candidates, invalid,
+              time_by="device_ms"):
+        t_sweep = time.perf_counter()
+        default = {f: tuning.heuristic_blocks(kernel, **dims)[f]
+                   for f in tuning.RUNTIME_FIELDS[kernel]}
+
+        def run(blocks):
+            if tuning.lookup(kernel, dev, **dims) != blocks:
+                tuning.record(kernel, blocks, device=dev, **dims)
+            out = call()
+            torch.cuda.synchronize()
+            return out
+
+        rows = []
+        for cand in [default, *candidates]:
+            check(run(cand), f"3r(c) {tag} {cand}")
+            rows.append(dict(plan=cand, ms=device_ms(torch, call)[0]
+                             if time_by == "device_ms"
+                             else time_ms(torch, call, 3), time_by=time_by))
+        try:
+            run(invalid)
+            raised = False
+        except ValueError:
+            raised = True
+        require(raised, f"3r(c) {tag}: the plan {invalid} did not raise")
+        best = tuning.autotune(kernel, run, [default, *candidates, invalid],
+                               device=dev, **dims)
+        print(f"  (c) {tag}: " + "; ".join(
+            f"{r_['plan']} {r_['ms']:.4f} ms"
+            + (" (default)" if r_["plan"] == default else "")
+            for r_ in rows) + f" ({time_by}); {invalid} raised and was "
+            f"skipped; "
+            f"winner {best} ({time.perf_counter() - t_sweep:.1f} s)")
+        sweeps.append(dict(tag=tag, kernel=kernel, dims=dims, call=call,
+                           default=default, winner=best, rows=rows,
+                           invalid=invalid))
+
+    def wave_candidates(b_, t_, d_):
+        plan_ = assign_ops.wave_plan(b_, t_, d_, sms)
+        out = []
+        for per in (2 * plan_.ksteps_per_slice,
+                    -(-plan_.ksteps_per_slice // 2), plan_.ksteps):
+            cand = {"n_slices": -(-plan_.ksteps // per),
+                    "ksteps_per_slice": per}
+            if cand["n_slices"] != plan_.n_slices and cand not in out:
+                out.append(cand)
+        return out
+
+    def assign_check(plain, k_):
+        return lambda out, name: check_assign(torch, name, out, plain, k_,
+                                              "bf16", quiet=True)
+
+    serve_v_r = torch.as_tensor(v_last).to(dev).contiguous()
+    serve_f32_r = quant.dequantize_directory(serve_protos)
+    for tag, v_w, p_w in (("assign_wave serving", serve_v_r, serve_f32_r),
+                          ("assign_wave landmarks", land_v, land_protos)):
+        b_w, d_w, k_w = v_w.shape
+        t_w = p_w.shape[0]
+        sweep(f"{tag} ({b_w}, {t_w}, {d_w}, {k_w}) bf16", "assign_wave",
+              dict(b=b_w, t=t_w, d=d_w, sms=sms),
+              lambda v_w=v_w, p_w=p_w: assign(v_w, p_w, None, "bf16"),
+              assign_check(assign_wave_plain(v_w, p_w, None, None, "bf16"),
+                           k_w),
+              wave_candidates(b_w, t_w, d_w),
+              {"n_slices": 3, "ksteps_per_slice": 1})
+    b_o, d_o, k_o = serve_v_r.shape
+    t_o = serve_f32_r.shape[0]
+    one_default = assign_ops.one_plan(b_o, t_o, d_o, k_o, sms, "bf16")
+    sweep(f"assign_one serving ({b_o}, {t_o}, {d_o}, {k_o}) bf16",
+          "assign_one", dict(b=b_o, t=t_o, d=d_o, k=k_o, sms=sms, itemsize=2),
+          lambda: assign_looped(serve_v_r, serve_f32_r, None, "bf16"),
+          assign_check(assign_looped_plain(serve_v_r, serve_f32_r, None,
+                                           "bf16"), k_o),
+          [{"slice_rows": h, "stages": s} for h in assign_ops.SLICE_ROWS
+           for s in (3, 5)
+           if (h, s) != (one_default.slice_rows, one_default.stages)
+           and assign_ops.one_smem_bytes(h, one_default.v_rows, s, "bf16")
+           <= assign_ops.MAX_SMEM],
+          {"slice_rows": 8, "stages": 3})
+    # gram_project is timed by CUDA events around one call (time_ms, as in
+    # phase 4): with n_valid None its wrapper copies n to the card, which
+    # waits for the stream, so calls cannot queue behind device_ms's spin
+    # (its retries then spin for seconds); a call takes 90 ms or more, so
+    # the host's gaps do not count.
+    gp_plain = gram_project_ref(x, v_flat)
+    gp_default = gp_ops.project_plan(DIM)
+    sweep(f"gram_project blockwise ({N_USERS}, {N_SAMPLES}, {DIM}) x "
+          f"({DIM}, {v_flat.shape[1]})", "gram_project",
+          dict(b=N_USERS, n=N_SAMPLES, d=DIM, k=v_flat.shape[1]),
+          lambda: batched_gram_project(x, v_flat),
+          lambda out, name: check_close(torch, name, out, gp_plain, 1e-5),
+          [{"bk": bk, "stages": s} for bk, s in ((64, 1), (32, 2), (16, 2))
+           if (bk, s) != (gp_default.bk, gp_default.stages)
+           and gp_ops.smem_bytes(DIM, bk, s) <= gp_ops.MAX_SMEM],
+          {"bk": 64, "stages": 3}, time_by="events around a call")
+    del gp_plain
+    scan_gen = torch.Generator(device=dev).manual_seed(ROBUST_NOISE_SEED)
+    sb, ss, sd = HYBRID_PREFILL[0], HYBRID_PREFILL[1], 4096
+    la_r = -torch.exp(torch.randn((sb, ss, sd), generator=scan_gen,
+                                  device=dev) - 1)
+    x_r = torch.randn((sb, ss, sd), generator=scan_gen, device=dev)
+    h0_r = torch.randn((sb, sd), generator=scan_gen, device=dev)
+    scan_want = linear_scan_ref(la_r, x_r, h0_r)
+
+    def scan_check(out, name):
+        require(torch.equal(out[0], scan_want[0])
+                and torch.equal(out[1], scan_want[1]),
+                f"{name}: differs from the plain scan")
+
+    sweep(f"linear_scan ({sb}, {ss}, {sd})", "linear_scan",
+          dict(b=sb, s=ss, d=sd, aligned=1),
+          lambda: linear_scan(la_r, x_r, h0_r), scan_check,
+          [{"route": "cp.async4"}], {"route": "bulk"})
+    # The winners from the file: the plan each wrapper now resolves (the
+    # kernel_blocks gauge of its launch) must be the winner's.
+    tuning.clear_cache()
+    cached = json.loads(Path(os.environ[TUNE_ENV]).read_text())
+    for s_ in sweeps:
+        obs.reset()
+        with obs.scope(True):
+            s_["call"]()
+            plan_text = obs.gauge_value(
+                "kernel_blocks", kernel=dispatch.FAMILIES[s_["kernel"]])
+        torch.cuda.synchronize()
+        fields = dict(f.split("=") for f in plan_text.split(","))
+        require(all(fields[f] == str(val)
+                    for f, val in s_["winner"].items()),
+                f"3r(c) {s_['tag']}: launched {plan_text}, not the cached "
+                f"winner {s_['winner']}")
+    obs.reset()
+    bad = next(s_ for s_ in sweeps if s_["kernel"] == "gram_project")
+    tuning.record(bad["kernel"], bad["invalid"], device=dev, **bad["dims"])
+    before_bad = dict(dispatch.LAUNCHES)
+    bad_text = None
+    try:
+        bad["call"]()
+    except ValueError as e:
+        bad_text = str(e)
+    require(bad_text is not None and dispatch.LAUNCHES == before_bad,
+            "3r(c): a cached gram_project plan that does not fit did not "
+            "raise, or launched")
+    print(f"  (c) {len(cached)} winners in the cache file, each launched "
+          f"from it by its wrapper; a cached {bad['invalid']} raised: "
+          f"{bad_text}")
+    tuning.clear_cache()
+    del os.environ[TUNE_ENV]
+    shutil.rmtree(tune_dir)
+    p3r["tuner"] = [dict(tag=s_["tag"], dims=s_["dims"],
+                         default=s_["default"], winner=s_["winner"],
+                         candidates=s_["rows"], invalid=s_["invalid"])
+                    for s_ in sweeps]
+    del la_r, x_r, h0_r, scan_want
+    part_s["c"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+
+    # (d) The roofline model: detect_hardware() must name the card's entry;
+    # the reference's kernel cost model (its 128-wide tiles) for one user
+    # at the dense cell's shape, times N users, beside phase 4's bounds
+    # (each input read once; 3xTF32 as three TF32 products).
+    hw = roofline.detect_hardware()
+    print(f"  (d) detect_hardware(): {hw}")
+    require(hw == roofline.HW_TABLE["h100"],
+            f"3r(d): detect_hardware() gives {hw.name}, not gpu-h100")
+    hw_3x = roofline.detect_hardware(peak_flops=roofline.TF32_FLOPS / 3)
+    rows_d = {}
+    for name, dims, bound in (
+            ("gram", dict(n=N_SAMPLES, d=DIM), split_bound_ms(
+                1.0 * N_USERS * N_SAMPLES * DIM * (DIM + 1),
+                4.0 * (N_USERS * N_SAMPLES * DIM + N_USERS * DIM * DIM))),
+            ("eigproject", dict(d=DIM, k=N_USERS * TOP_K), split_bound_ms(
+                2.0 * N_USERS * N_USERS * DIM * DIM * TOP_K,
+                4.0 * (N_USERS * DIM * DIM + N_USERS * DIM * TOP_K
+                       + N_USERS * N_USERS * TOP_K)))):
+        one = roofline.kernel_roofline(name, hw=hw, **dims)
+        one_3x = roofline.kernel_roofline(name, hw=hw_3x, **dims)
+        rows_d[name] = dict(
+            per_user=one, roof_ms=one["roof_s"] * N_USERS * 1e3,
+            roof_3xtf32_ms=one_3x["roof_s"] * N_USERS * 1e3,
+            phase4_bound_ms=bound[0], phase4_bound_by=bound[1])
+        print(f"      {name} {dims}: {one['flops']:.4g} flops, "
+              f"{one['bytes']:.4g} bytes a user, {one['bound']}-bound; x "
+              f"{N_USERS} users {rows_d[name]['roof_ms']:.4f} ms at "
+              f"{hw.name} (bf16 peak), "
+              f"{rows_d[name]['roof_3xtf32_ms']:.4f} ms as 3xTF32; phase "
+              f"4's bound {bound[0]:.4f} ms by {bound[1]}")
+    p3r["roofline"] = dict(hw=dataclasses.asdict(hw), kernels=rows_d)
+    part_s["d"] = time.perf_counter() - t_part
+    print("  parts took " + ", ".join(f"({k}) {v_:.1f} s"
+                                      for k, v_ in part_s.items()))
+    phase_done("phase 3r")
 
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "

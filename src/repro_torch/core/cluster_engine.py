@@ -5,16 +5,22 @@ Mirrors ``src/repro/core/cluster_engine.py``:
   backend   | execution
   ----------|------------------------------------------------------------
   "numpy"   | the host reference: ``clustering.hac`` / ``clustering.cut``
+            | / ``clustering.spectral_clusters``
   "torch"   | nearest-neighbour-chain HAC on the engine's device, then a
-            | device cut (top-(N-T) union forest + pointer jumping)
+            | device cut (top-(N-T) union forest + pointer jumping);
+            | spectral clustering on the same device
 
 On a CUDA device the whole NN-chain loop is one persistent kernel
 (``kernels/linkage``); on the CPU it is the plain Python loop over the
 fused step.  For the reducible linkages (single / complete / average)
 the reciprocal-NN merges are exactly the greedy dendrogram, so the labels
-equal the reference HAC's up to tie order.  Telemetry: the ``cluster.hac``
-span (``backend``, ``linkage``) and ``cluster.hac_runs`` counter, and the
-``cluster.cut`` span (``n_clusters``), as in the reference.
+equal the reference HAC's up to tie order.  Spectral clustering
+(``ClusterEngine.spectral``) has no kernel of its own, as in the
+reference: its hot spot is the library ``eigh``.  Telemetry: the
+``cluster.hac`` span (``backend``, ``linkage``) and ``cluster.hac_runs``
+counter, the ``cluster.cut`` span (``n_clusters``) and the
+``cluster.spectral`` span (``backend``, ``n_clusters``), as in the
+reference.
 """
 from __future__ import annotations
 
@@ -114,6 +120,70 @@ def cut_device_grouped(merge_rows: torch.Tensor, heights: torch.Tensor,
     return labels.to(torch.int32)
 
 
+def _spectral_embedding(r: torch.Tensor, n_clusters: int) -> torch.Tensor:
+    """The bottom ``n_clusters`` eigenvectors of the normalised Laplacian
+    of ``r`` with its diagonal zeroed, rows normalised: ``(N, T)``."""
+    n = r.shape[0]
+    eye = torch.eye(n, dtype=r.dtype, device=r.device)
+    a = r * (1.0 - eye)
+    d_inv_sqrt = 1.0 / torch.sqrt(torch.clamp_min(a.sum(dim=1), 1e-12))
+    lap = eye - d_inv_sqrt[:, None] * a * d_inv_sqrt[None, :]
+    _, v = torch.linalg.eigh(lap)
+    emb = v[:, :n_clusters]
+    return emb / torch.clamp_min(
+        torch.linalg.vector_norm(emb, dim=1, keepdim=True), 1e-12)
+
+
+def _lloyd(emb: torch.Tensor, init_idx: torch.Tensor, n_iter: int
+           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Lloyd's algorithm from every init at once: ``init_idx (I, T)``
+    starting rows of ``emb (N, T)``, ``n_iter`` iterations, an empty
+    cluster keeping its centre.  Returns each init's labels ``(I, N)``
+    int32 and objective ``(I,)`` (the summed squared distance to the
+    nearest centre)."""
+    centers = emb[init_idx]                                # (I, T, T)
+    ids = torch.arange(init_idx.shape[1], device=emb.device)
+
+    def dists(c):
+        return ((emb[None, :, None, :] - c[:, None]) ** 2).sum(-1)
+
+    for _ in range(n_iter):
+        onehot = (dists(centers).argmin(-1)[..., None] == ids).to(emb.dtype)
+        cnt = onehot.sum(dim=1)                            # (I, T)
+        new_c = (onehot.mT @ emb) / torch.clamp_min(cnt, 1.0)[..., None]
+        centers = torch.where(cnt[..., None] > 0, new_c, centers)
+    d = dists(centers)                                     # (I, N, T)
+    return d.argmin(-1).to(torch.int32), d.min(-1).values.sum(-1)
+
+
+def _spectral_device(r: torch.Tensor, n_clusters: int,
+                     generator: torch.Generator | None = None, *,
+                     n_init: int = 8, n_iter: int = 50,
+                     init_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """Ng-Jordan-Weiss on ``r (N, N)`` float32, on ``r``'s device: the
+    row-normalised bottom eigenvectors (``_spectral_embedding``), then
+    Lloyd's algorithm from ``n_init`` inits at once (a leading batch
+    axis, where the reference vmaps).  Returns the labels of the init
+    with the least objective (the first on a tie), int32 on ``r``'s
+    device, with no host synchronisation in the loop.
+
+    Each init starts from ``n_clusters`` distinct rows, drawn without
+    replacement from ``generator`` (the first ``n_clusters`` of a random
+    permutation), unless ``init_idx (n_init, n_clusters)`` gives them.
+    """
+    emb = _spectral_embedding(r, n_clusters)
+    if init_idx is None:
+        keys = torch.rand((n_init, r.shape[0]), generator=generator,
+                          device=r.device)
+        init_idx = keys.argsort(dim=1)[:, :n_clusters]
+    init_idx = torch.as_tensor(init_idx, device=r.device).long()
+    if init_idx.shape != (n_init, n_clusters):
+        raise ValueError(f"init_idx must be ({n_init}, {n_clusters}), got "
+                         f"{tuple(init_idx.shape)}")
+    labels, objs = _lloyd(emb, init_idx, n_iter)
+    return labels.index_select(0, objs.argmin().reshape(1))[0]
+
+
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) \
         else np.asarray(x)
@@ -200,3 +270,30 @@ class ClusterEngine:
         """HAC + cut.  numpy backend -> ``np.ndarray``; torch backend -> a
         tensor on the engine's device."""
         return self.cut(self.hac(similarity), n_clusters)
+
+    def spectral(self, similarity, n_clusters: int, rng=0, *,
+                 init_idx=None):
+        """Normalized spectral clustering on the affinity ``R``.
+
+        The numpy backend delegates to ``clustering.spectral_clusters``
+        (``rng`` a numpy seed or ``Generator``); the torch backend runs
+        ``_spectral_device`` on the engine's device (``rng`` an int seed
+        or a ``torch.Generator`` on that device) and returns int32
+        labels there.  ``init_idx (8, n_clusters)`` gives the device path's
+        starting rows in place of the draws.
+        """
+        with obs.span("cluster.spectral", backend=self.cfg.backend,
+                      n_clusters=n_clusters) as sp:
+            if self.cfg.backend == "numpy":
+                return clu.spectral_clusters(_host(similarity), n_clusters,
+                                             rng=rng)
+            s = torch.as_tensor(similarity).to(device=self.device,
+                                               dtype=torch.float32)
+            if s.ndim != 2 or s.shape[0] != s.shape[1]:
+                raise ValueError(f"similarity must be square, got "
+                                 f"{tuple(s.shape)}")
+            self._check_n_clusters(n_clusters, s.shape[0])
+            gen = rng if isinstance(rng, torch.Generator) else \
+                torch.Generator(device=self.device).manual_seed(int(rng))
+            return sp.sync(_spectral_device(s, n_clusters, gen,
+                                            init_idx=init_idx))

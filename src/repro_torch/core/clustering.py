@@ -2,10 +2,11 @@
 
 A copy of the parts of ``src/repro/core/clustering.py`` the port's
 slice needs: ``Dendrogram``, ``hac``, ``cut``, ``hac_clusters``,
-``oracle_clusters``, ``clustering_accuracy``,
+``oracle_clusters``, ``spectral_clusters``, ``clustering_accuracy``,
 ``adjusted_rand_index``, and the trainer's baselines ``random_clusters``
-(the paper's) and ``ifca_assign`` (IFCA's assignment step).  The port imports nothing from the JAX package,
-so it keeps its own copy; the tests hold the two equal.
+(the paper's) and ``ifca_assign`` (IFCA's assignment step).  The port
+imports nothing from the JAX package, so it keeps its own copy; the
+tests hold the two equal.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ __all__ = [
     "hac_clusters",
     "oracle_clusters",
     "random_clusters",
+    "spectral_clusters",
     "ifca_assign",
     "clustering_accuracy",
     "adjusted_rand_index",
@@ -189,6 +191,44 @@ def oracle_clusters(task_ids: Sequence[int]) -> np.ndarray:
     """Ground-truth partition (relabelled to 0..T-1)."""
     _, labels = np.unique(np.asarray(task_ids), return_inverse=True)
     return labels.astype(np.int32)
+
+
+def spectral_clusters(similarity: np.ndarray, n_clusters: int,
+                      rng: np.random.Generator | int = 0) -> np.ndarray:
+    """Beyond-paper: normalized spectral clustering on the affinity R.
+
+    Ng-Jordan-Weiss: normalized Laplacian, bottom-T eigenvectors, row
+    normalisation, k-means (Lloyd, 50 iters, best of 8 inits).
+    """
+    rng = np.random.default_rng(rng) if isinstance(rng, int) else rng
+    a = _validate_similarity(similarity)
+    if not 1 <= n_clusters <= a.shape[0]:
+        # otherwise this crashes opaquely inside rng.choice (or silently
+        # k-means-es more centers than points)
+        raise ValueError(f"n_clusters must be in [1, {a.shape[0]}], "
+                         f"got {n_clusters}")
+    np.fill_diagonal(a, 0.0)
+    deg = a.sum(axis=1)
+    d_inv_sqrt = 1.0 / np.sqrt(np.maximum(deg, 1e-12))
+    lap = np.eye(len(a)) - d_inv_sqrt[:, None] * a * d_inv_sqrt[None, :]
+    w, v = np.linalg.eigh(lap)
+    emb = v[:, :n_clusters]
+    norms = np.linalg.norm(emb, axis=1, keepdims=True)
+    emb = emb / np.maximum(norms, 1e-12)
+    best_labels, best_obj = None, np.inf
+    for _ in range(8):
+        centers = emb[rng.choice(len(emb), n_clusters, replace=False)]
+        for _ in range(50):
+            dists = ((emb[:, None, :] - centers[None]) ** 2).sum(-1)
+            labels = dists.argmin(1)
+            for c in range(n_clusters):
+                pts = emb[labels == c]
+                if len(pts):
+                    centers[c] = pts.mean(0)
+        obj = float(dists.min(1).sum())
+        if obj < best_obj:
+            best_obj, best_labels = obj, labels
+    return best_labels.astype(np.int32)
 
 
 def ifca_assign(losses: np.ndarray) -> np.ndarray:

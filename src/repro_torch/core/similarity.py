@@ -14,6 +14,10 @@ the cross-projection go through the hand-written kernels
 (``kernels/gram``, ``kernels/eigproject``) for CUDA tensors and through
 their plain versions for CPU tensors; ``torch.linalg.eigh`` stays a
 library call, as ``jnp.linalg.eigh`` was outside any Pallas kernel.
+
+Beyond the paper (its §IV future work): ``perturb_eigenvectors`` puts
+noise on the shared eigenvectors and ``subsample_rows`` (numpy only, a
+copy of the reference's) estimates a Gram from fewer rows.
 """
 from __future__ import annotations
 
@@ -34,13 +38,19 @@ __all__ = [
     "gram",
     "batched_gram",
     "spectrum",
+    "user_signature",
     "cross_project",
     "relevance",
     "relevance_matrix",
     "symmetrize",
     "signature_relevance",
     "similarity_matrix",
+    "perturb_eigenvectors",
+    "perturb_with_noise",
+    "subsample_rows",
 ]
+
+EPS = 1e-12
 
 #: Largest ``(rows, N, k, k)`` block of ``signature_relevance``, in floats.
 _SIG_BLOCK_ELEMS = 1 << 24
@@ -188,6 +198,20 @@ def spectrum(g: torch.Tensor, top_k: int = 0
     return lam, v[..., d - k:].flip(-1)
 
 
+def user_signature(features: torch.Tensor, cfg: SimilarityConfig,
+                   *, n_valid=None
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One user's public signature: ``(lam (k,), V (d, k), G (d, d))``.
+
+    ``lam`` and ``V`` are what the user shares; ``G`` stays private and is
+    used locally for cross-projection.  On a CUDA tensor the Gram is the
+    ``gram`` kernel's.
+    """
+    g = gram(features, n_valid=n_valid)
+    lam, v = spectrum(g, cfg.top_k)
+    return lam, v, g
+
+
 # ---------------------------------------------------------------------------
 # Step 3: cross-projection (Eq. 2)
 # ---------------------------------------------------------------------------
@@ -264,6 +288,52 @@ def signature_relevance(lam: torch.Tensor, v: torch.Tensor,
                              .sum(dim=2))                     # (R, N, k)
         out.append(relevance(lam_i[:, None, :], lam_hat, eig_floor))
     return symmetrize(torch.cat(out))
+
+
+# ---------------------------------------------------------------------------
+# Beyond-paper: privacy noise + subsampled Gram (paper §IV future work)
+# ---------------------------------------------------------------------------
+
+def perturb_with_noise(v: torch.Tensor, sigma: float, noise: torch.Tensor,
+                       renormalize: bool = True) -> torch.Tensor:
+    """``perturb_eigenvectors``'s arithmetic on a given standard-normal
+    ``noise`` of ``v``'s shape: ``v + sigma noise`` in float32, columns
+    re-normalised (over axis -2) when asked, cast back to ``v.dtype``."""
+    out = v.to(torch.float32) + sigma * noise.to(torch.float32)
+    if renormalize:
+        norms = torch.linalg.vector_norm(out, dim=-2, keepdim=True)
+        out = out / torch.clamp_min(norms, EPS)
+    return out.to(v.dtype)
+
+
+def perturb_eigenvectors(v: torch.Tensor, sigma: float,
+                         generator: torch.Generator | int,
+                         renormalize: bool = True) -> torch.Tensor:
+    """Additive Gaussian noise on the SHARED eigenvectors (the only thing
+    that leaves a user): the extra privacy layer the paper's §IV names as
+    future work.  ``v (d, k)`` or ``(N, d, k)``; columns are re-normalized
+    so the projection magnitudes stay comparable.  The noise is drawn
+    from ``generator``, a ``torch.Generator`` on ``v``'s device (an int
+    seeds a new one there).
+    """
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=v.device).manual_seed(
+            int(generator))
+    noise = torch.randn(v.shape, generator=generator, device=v.device,
+                        dtype=torch.float32)
+    return perturb_with_noise(v, sigma, noise, renormalize)
+
+
+def subsample_rows(features: np.ndarray, max_rows: int,
+                   seed: int = 0) -> np.ndarray:
+    """Nystrom-style row subsampling: the Gram estimate from ``max_rows``
+    uniformly-sampled rows is an unbiased second-moment estimator, cutting
+    the Eq.-1 cost from O(n d^2) to O(max_rows d^2) for n >> d regimes."""
+    n = features.shape[0]
+    if n <= max_rows:
+        return features
+    idx = np.random.default_rng(seed).choice(n, max_rows, replace=False)
+    return features[idx]
 
 
 def similarity_matrix(features, cfg: SimilarityConfig | None = None,

@@ -22,6 +22,12 @@ product, split over blocks of arrival groups x slices of P's rows by
 allocates, then a second kernel that adds them in slice order, keeps the
 verdict and divides by k.  CUDA tensors launch the kernels or raise; CPU
 tensors take the plain versions in ``ref.py``.
+
+Both plans resolve through ``tuning.get_blocks``: ``wave_plan`` and
+``one_plan`` are the defaults, and a tuned cache entry may set the
+fields the launch takes at run time (the wave's ``n_slices`` and
+``ksteps_per_slice``; ``assign_one``'s ``slice_rows`` and ``stages``),
+checked by ``resolve_wave`` and ``resolve_one``.
 """
 from __future__ import annotations
 
@@ -30,7 +36,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, dispatch, tuning
 from repro_torch.kernels.assign.ref import (_cast, _masked,
                                             assign_looped_plain,
                                             assign_wave_plain, verdict)
@@ -97,6 +103,19 @@ def wave_plan(b: int, t: int, d: int, sms: int) -> WavePlan:
             best = (cost, per, n_slices)
     _, per, n_slices = best
     return WavePlan(block_n, m_tiles, n_tiles, ksteps, per, n_slices)
+
+
+def resolve_wave(blocks: dict) -> dict:
+    """A wave plan whose ``n_slices`` and ``ksteps_per_slice`` came from
+    the tuner's cache, checked as the kernel checks it: every K-step in
+    exactly one of ``n_slices`` runs of ``ksteps_per_slice`` (none empty).
+    Raises ``ValueError`` on one that does not fit."""
+    n, per, ksteps = (blocks["n_slices"], blocks["ksteps_per_slice"],
+                      blocks["ksteps"])
+    if n < 1 or per < 1 or n * per < ksteps or (n - 1) * per >= ksteps:
+        raise ValueError(f"assign_wave: {n} slices of {per} K-steps do not "
+                         f"cover the wave's {ksteps} K-steps exactly")
+    return blocks
 
 
 #: assign_one: columns of ``[V_1 .. V_B]`` a block, columns of d a step,
@@ -178,6 +197,26 @@ def one_plan(b: int, t: int, d: int, k: int, sms: int,
                   if one_smem_bytes(h, v_rows, s, compute_dtype) <= MAX_SMEM)
     return OnePlan(group, col_tiles, n_groups, h, _cdiv(d, h), v_rows,
                    stages, one_smem_bytes(h, v_rows, stages, compute_dtype))
+
+
+def resolve_one(blocks: dict, d: int, compute_dtype: str) -> dict:
+    """An assign_one plan whose ``slice_rows`` and ``stages`` came from the
+    tuner's cache: ``n_slices`` and ``smem`` recomputed, and checked as the
+    kernel checks them (slices of 16 or 32 rows, a ring of 3 to 5 steps,
+    the shared memory of one block).  Raises ``ValueError`` on a plan that
+    does not fit."""
+    h, stages = blocks["slice_rows"], blocks["stages"]
+    if h not in SLICE_ROWS or not min(ONE_STAGES) <= stages <= max(
+            ONE_STAGES):
+        raise ValueError(f"assign_one: slice_rows must be one of "
+                         f"{SLICE_ROWS} and stages in {min(ONE_STAGES)}.."
+                         f"{max(ONE_STAGES)}, got {h} and {stages}")
+    smem = one_smem_bytes(h, blocks["v_rows"], stages, compute_dtype)
+    if smem > MAX_SMEM:
+        raise ValueError(f"assign_one: {smem} bytes of shared memory at "
+                         f"slice_rows {h}, stages {stages} exceed "
+                         f"{MAX_SMEM}")
+    return dict(blocks, n_slices=_cdiv(d, h), smem=smem)
 
 
 def one_block(plan: OnePlan, b: int, k: int, block: int
@@ -320,7 +359,9 @@ def assign(v: torch.Tensor, protos: torch.Tensor, mask=None,
         outs = (aff.data_ptr(), labels.data_ptr(), margin.data_ptr())
         with torch.cuda.device(device):
             if wave_entry(compute_dtype) == "repro_assign_wave_tc":
-                plan = wave_plan(b, t, d, _sm_count(device))
+                plan = WavePlan(**tuning.get_blocks(
+                    "assign_wave", resolve_wave, device, b=b, t=t, d=d,
+                    sms=_sm_count(device)))
                 work = torch.empty((plan.n_slices, b, t), device=device,
                                    dtype=torch.float32)
                 rc = lib.repro_assign_wave_tc(
@@ -332,7 +373,7 @@ def assign(v: torch.Tensor, protos: torch.Tensor, mask=None,
                 rc = lib.repro_assign_wave(*head, *outs, b, t, d, k,
                                            dispatch.stream_of(v))
         build.check(rc, "assign_wave")
-        dispatch.count_launch("assign_wave", plan)
+        dispatch.count_launch("assign_wave", recorded=plan is not None)
     return aff / k, labels, margin / k
 
 
@@ -357,7 +398,11 @@ def assign_looped(v: torch.Tensor, protos: torch.Tensor, mask=None,
     aff, labels, margin = _outputs(b, t, device)
     if b:
         lib = build.library()
-        plan = one_plan(b, t, d, k, _sm_count(device), compute_dtype)
+        plan = OnePlan(**tuning.get_blocks(
+            "assign_one",
+            lambda blocks: resolve_one(blocks, d, compute_dtype), device,
+            b=b, t=t, d=d, k=k, sms=_sm_count(device),
+            itemsize=2 if compute_dtype == "bf16" else 4))
         work = torch.empty((plan.n_parts, b, t), device=device,
                            dtype=torch.float32)
         with torch.cuda.device(device):
@@ -368,5 +413,5 @@ def assign_looped(v: torch.Tensor, protos: torch.Tensor, mask=None,
                 plan.col_tiles, plan.slice_rows, plan.v_rows, plan.stages,
                 int(compute_dtype == "bf16"), dispatch.stream_of(v))
         build.check(rc, "assign_one")
-        dispatch.count_launch("assign_one", plan)
+        dispatch.count_launch("assign_one", recorded=True)
     return aff, labels, margin

@@ -8,7 +8,8 @@ fallback: a missing card is an error unless the caller asked for the CPU.
 
 ``count_launch`` is the one place a launch is counted: in ``LAUNCHES``
 always, and through ``record_dispatch`` in the telemetry registry while
-``repro_torch.obs`` is enabled.
+``repro_torch.obs`` is enabled, once a launch: by ``count_launch``
+itself, or, for a plan resolved by ``tuning.get_blocks``, by that.
 
 The kernels have no backward (nor do the reference's Pallas calls): a
 kernel writes into a fresh tensor, whose lack of a ``grad_fn`` would
@@ -23,9 +24,9 @@ import torch
 
 from repro_torch import obs
 
-__all__ = ["LAUNCHES", "FAMILIES", "resolve_device", "device_kind",
-           "on_cuda", "count_launch", "reset_launches", "stream_of",
-           "aligned16", "record_dispatch", "refuse_grad"]
+__all__ = ["LAUNCHES", "FAMILIES", "resolve_device", "backend_kind",
+           "device_kind", "on_cuda", "count_launch", "reset_launches",
+           "stream_of", "aligned16", "record_dispatch", "refuse_grad"]
 
 #: Kernel name -> launches since the last ``reset_launches()``.  Each
 #: wrapper adds one where it launches its kernel, and nowhere else.
@@ -65,6 +66,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
     return dev
+
+
+def backend_kind(device: str | torch.device = "cuda") -> str:
+    """Platform of the device, in the reference's words: ``"gpu"`` for
+    a CUDA device, ``"cpu"`` for the host."""
+    return "gpu" if resolve_device(device).type == "cuda" else "cpu"
 
 
 def device_kind(device: str | torch.device = "cuda") -> str:
@@ -127,11 +134,13 @@ def record_dispatch(kernel: str, blocks: dict | None = None) -> None:
         obs.gauge("kernel_blocks", plan, kernel=kernel)
 
 
-def count_launch(name: str, plan=None) -> None:
+def count_launch(name: str, plan=None, *, recorded: bool = False) -> None:
     """Count one launch of kernel ``name``; ``plan`` is the launch plan
-    (a dataclass) where the wrapper computed one."""
+    (a dataclass) where the wrapper computed one.  ``recorded``: the
+    launch's plan came from ``tuning.get_blocks``, which recorded the
+    dispatch already, so it is not recorded twice."""
     LAUNCHES[name] += 1
-    if obs.enabled() and name in FAMILIES:
+    if obs.enabled() and name in FAMILIES and not recorded:
         record_dispatch(FAMILIES[name], None if plan is None
                         else dataclasses.asdict(plan))
 

@@ -10,7 +10,9 @@ user of a tile, one launch covers the whole tile.
 
 The kernel runs both products on the TF32 tensor cores through the
 3xTF32 split (``kernels/tf32.py`` is its plain version); ``project_plan``
-picks its column-slab width and ring depth from ``d``.
+picks its column-slab width and ring depth from ``d``.  The plan resolves
+through ``tuning.get_blocks``: a tuned cache entry may set ``bk`` and
+``stages``, checked by ``resolve_project``.
 """
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, dispatch, tuning
 from repro_torch.kernels.gram_project.ref import gram_project_ref
 
 #: Rows of X a tile, warps a block, and the padding of the depth d.
@@ -68,6 +70,24 @@ def project_plan(d: int) -> ProjectPlan:
     raise ValueError(f"the gram_project kernel supports d <= 2048, got d={d}")
 
 
+def resolve_project(blocks: dict, d: int) -> dict:
+    """A plan whose ``bk`` and ``stages`` came from the tuner's cache:
+    ``smem`` recomputed, and checked as the kernel checks it (a slab of
+    64, 32, 16 or 8 columns whose Q accumulators hold the padded depth,
+    one or two X tiles in flight, the shared memory of one block).
+    Raises ``ValueError`` on a plan that does not fit."""
+    bk, stages = blocks["bk"], blocks["stages"]
+    if bk not in MAX_DEPTH or stages not in (1, 2):
+        raise ValueError(f"gram_project: bk must be one of "
+                         f"{tuple(MAX_DEPTH)} and stages 1 or 2, got {bk} "
+                         f"and {stages}")
+    smem = smem_bytes(d, bk, stages)
+    if blocks["d_pad"] > MAX_DEPTH[bk] or smem > MAX_SMEM:
+        raise ValueError(f"gram_project: a slab of {bk} columns with "
+                         f"{stages} stages does not fit d={d}")
+    return dict(blocks, smem=smem)
+
+
 def batched_gram_project(x: torch.Tensor, v: torch.Tensor,
                          n_valid=None) -> torch.Tensor:
     """``x (B, n, d)``, ``v (d, K)`` -> ``(B, K)`` fp32 with
@@ -88,7 +108,9 @@ def batched_gram_project(x: torch.Tensor, v: torch.Tensor,
                       dtype=torch.float32)
     if out.numel() == 0:
         return out
-    plan = project_plan(d)
+    plan = ProjectPlan(**tuning.get_blocks(
+        "gram_project", lambda blocks: resolve_project(blocks, d), x.device,
+        b=n_users, n=n, d=d, k=k_cols))
     lib = build.library()
     with torch.cuda.device(x.device):
         rc = lib.repro_gram_project(x.data_ptr(), v.data_ptr(),
@@ -96,7 +118,7 @@ def batched_gram_project(x: torch.Tensor, v: torch.Tensor,
                                     plan.bk, plan.stages,
                                     dispatch.stream_of(x))
     build.check(rc, "gram_project")
-    dispatch.count_launch("gram_project", plan)
+    dispatch.count_launch("gram_project", recorded=True)
     nv = n if n_valid is None else n_valid
     nv = torch.clamp_min(torch.as_tensor(nv, dtype=torch.float32,
                                          device=x.device), 1.0)

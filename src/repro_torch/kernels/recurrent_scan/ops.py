@@ -9,7 +9,9 @@ final state in fp32) so that ``models/rwkv6.py`` routes to it with
 ``h_last`` in fp32).  The kernels read the operands in their layout and
 mask ragged edges, where the reference pads the head, channel and
 sequence axes to its tiles; they have fixed tiles, so the reference's
-``chunk``, ``block_d`` and tuning cache have no counterpart.
+``chunk`` and ``block_d`` have no counterpart.  The scan's load route
+resolves through ``tuning.get_blocks`` (``resolve_scan`` checks a tuned
+one).
 
 The wkv kernel computes the chunk form over sub-chunks of 16 tokens
 (``ref.wkv_chunked_ref`` is its plain version): under
@@ -31,7 +33,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import build, dispatch
+from repro_torch.kernels import build, dispatch, tuning
 from repro_torch.kernels.recurrent_scan.ref import (COMPUTE_DTYPES,
                                                     linear_scan_ref,
                                                     wkv_chunked_ref)
@@ -47,7 +49,8 @@ class ScanPlan:
     ``stages`` in the ring, the ``route`` ("tma": operands in and h out by
     TMA, where a row is a multiple of 16 bytes, ``s > 0`` and the operands
     start 16-byte aligned; else "cp.async4": 4-byte ``cp.async`` in and
-    plain stores out), the block's ``smem`` (the ring, two output stages
+    plain stores out; the tuner may pick either where both fit), the
+    block's ``smem`` (the ring, two output stages
     and the barriers) and the ``blocks`` (batch x 32-channel tiles)."""
     tokens: int
     stages: int
@@ -65,6 +68,22 @@ def linear_scan_plan(b: int, s: int, d: int, aligned: bool = True
     smem = SCAN_STAGES * (2 * stage + 8) + 2 * stage
     return ScanPlan(SCAN_TOKENS, SCAN_STAGES, route, smem,
                     b * -(-d // SCAN_CHANNELS))
+
+
+def resolve_scan(blocks: dict, s: int, d: int, aligned: bool) -> dict:
+    """A plan whose ``route`` came from the tuner's cache, checked as the
+    kernel checks it: "tma" needs a row a multiple of 16 bytes, ``s > 0``
+    and 16-byte aligned operands.  Raises ``ValueError`` on one that does
+    not fit."""
+    route = blocks["route"]
+    if route not in ("tma", "cp.async4"):
+        raise ValueError(f"linear_scan: route must be 'tma' or 'cp.async4', "
+                         f"got {route!r}")
+    if route == "tma" and not (aligned and d % 4 == 0 and s > 0):
+        raise ValueError(f"linear_scan: the TMA route needs d % 4 == 0, "
+                         f"s > 0 and 16-byte aligned operands (d={d}, "
+                         f"s={s}, aligned={aligned})")
+    return blocks
 
 
 def kernel_scan_plan(b: int, s: int, d: int, aligned: bool = True
@@ -151,8 +170,10 @@ def linear_scan(log_a, x, h0) -> tuple[torch.Tensor, torch.Tensor]:
     h_last = torch.empty_like(h0)
     if b * d == 0:
         return h, h_last
-    plan = linear_scan_plan(b, s, d, log_a.data_ptr() % 16 == 0
-                            and x.data_ptr() % 16 == 0)
+    aligned = log_a.data_ptr() % 16 == 0 and x.data_ptr() % 16 == 0
+    plan = ScanPlan(**tuning.get_blocks(
+        "linear_scan", lambda blocks: resolve_scan(blocks, s, d, aligned),
+        x.device, b=b, s=s, d=d, aligned=int(aligned)))
     lib = build.library()
     with torch.cuda.device(x.device):
         rc = lib.repro_linear_scan(log_a.data_ptr(), x.data_ptr(),
@@ -161,5 +182,5 @@ def linear_scan(log_a, x, h0) -> tuple[torch.Tensor, torch.Tensor]:
                                    int(plan.route == "tma"),
                                    dispatch.stream_of(x))
     build.check(rc, "linear_scan")
-    dispatch.count_launch("linear_scan", plan)
+    dispatch.count_launch("linear_scan", recorded=True)
     return h, h_last

@@ -1116,3 +1116,113 @@ class TestTelemetryOnCard:
         finally:
             obs.disable()
             obs.reset()
+
+
+@pytest.fixture
+def empty_tuner(monkeypatch):
+    """An empty tuner cache with no file, before and after."""
+    from repro_torch.kernels import tuning
+
+    monkeypatch.delenv("REPRO_TORCH_TUNE_CACHE", raising=False)
+    tuning.clear_cache()
+    yield tuning
+    tuning.clear_cache()
+
+
+@pytest.mark.gpu
+class TestTunerAndSpectralOnCard:
+    """Each tunable wrapper under a cached plan that is not its default,
+    held to its plain version at this file's tolerances; a cached plan
+    that does not fit raises and launches nothing; spectral clustering on
+    the card."""
+
+    def test_non_default_plans(self, cuda_device, empty_tuner):
+        from repro_torch import obs
+        from repro_torch.kernels.assign import ops as assign_ops
+
+        tuning = empty_tuner
+        torch.manual_seed(0)
+        sms = assign_ops._sm_count(torch.device("cuda", 0))
+        b, n_protos, d, k = 128, 4, 512, 8
+        v = torch.randn((b, d, k), device=cuda_device)
+        p = torch.randn((n_protos, d, d), device=cuda_device)
+        base = assign_ops.wave_plan(b, n_protos, d, sms)
+        per = (2 * base.ksteps_per_slice if base.n_slices > 1
+               else -(-base.ksteps // 2))
+        n_slices = -(-base.ksteps // per)
+        assert n_slices != base.n_slices
+        tuning.record("assign_wave", {"n_slices": n_slices,
+                                      "ksteps_per_slice": per},
+                      device=cuda_device, b=b, t=n_protos, d=d, sms=sms)
+        one = assign_ops.one_plan(b, n_protos, d, k, sms, "bf16")
+        tuning.record("assign_one", {"slice_rows": 48 - one.slice_rows,
+                                     "stages": 3}, device=cuda_device,
+                      b=b, t=n_protos, d=d, k=k, sms=sms, itemsize=2)
+        x = torch.randn((3, 256, d), device=cuda_device)
+        w = torch.randn((d, 8), device=cuda_device)
+        tuning.record("gram_project", {"bk": 16, "stages": 1},
+                      device=cuda_device, b=3, n=256, d=d, k=8)
+        log_a = -torch.exp(torch.randn((1, 4096, 4096), device=cuda_device)
+                           - 1)
+        xs = torch.randn((1, 4096, 4096), device=cuda_device)
+        h0 = torch.randn((1, 4096), device=cuda_device)
+        tuning.record("linear_scan", {"route": "cp.async4"},
+                      device=cuda_device, b=1, s=4096, d=4096, aligned=1)
+        try:
+            with obs.scope(True):
+                aff = assign(v, p, None, "bf16")[0] * k
+                gauges = [obs.gauge_value("kernel_blocks", kernel="assign")]
+                aff_one = assign_looped(v, p, None, "bf16")[0] * k
+                gauges.append(obs.gauge_value("kernel_blocks",
+                                              kernel="assign"))
+                out = batched_gram_project(x, w)
+                gauges.append(obs.gauge_value("kernel_blocks",
+                                              kernel="gram_project"))
+                h, h_last = linear_scan(log_a, xs, h0)
+                gauges.append(obs.gauge_value("kernel_blocks",
+                                              kernel="recurrent_scan"))
+        finally:
+            obs.disable()
+            obs.reset()
+        close(aff, assign_wave_plain(v, p, None, None, "bf16")[0])
+        close(aff_one, assign_looped_plain(v, p, None, "bf16")[0])
+        close(out, gram_project_ref(x, w))
+        want, want_last = linear_scan_ref(log_a, xs, h0)
+        assert torch.equal(h, want) and torch.equal(h_last, want_last)
+        assert f"n_slices={n_slices}" in gauges[0].split(",")
+        assert f"slice_rows={48 - one.slice_rows}" in gauges[1].split(",")
+        assert "bk=16" in gauges[2].split(",")
+        assert "route=cp.async4" in gauges[3].split(",")
+
+    def test_cached_plan_that_does_not_fit_raises(self, cuda_device,
+                                                  empty_tuner):
+        tuning = empty_tuner
+        x = torch.randn((2, 64, 2048), device=cuda_device)
+        w = torch.randn((2048, 8), device=cuda_device)
+        tuning.record("gram_project", {"bk": 64}, device=cuda_device, b=2,
+                      n=64, d=2048, k=8)
+        a = torch.randn((1, 64, 30), device=cuda_device)
+        tuning.record("linear_scan", {"route": "tma"}, device=cuda_device,
+                      b=1, s=64, d=30, aligned=1)
+        before = dict(dispatch.LAUNCHES)
+        with pytest.raises(ValueError, match="does not fit"):
+            batched_gram_project(x, w)
+        with pytest.raises(ValueError, match="TMA route"):
+            linear_scan(a, a, torch.zeros((1, 30), device=cuda_device))
+        assert dispatch.LAUNCHES == before
+
+    def test_spectral_on_card(self, cuda_device):
+        from repro_torch.core.cluster_engine import ClusterEngine
+
+        rng = np.random.default_rng(5)
+        sizes = [40, 30, 20, 10]
+        lab = np.repeat(np.arange(4), sizes)
+        r = np.where(lab[:, None] == lab[None, :], 0.9, 0.2) \
+            + rng.uniform(-0.02, 0.02, (100, 100))
+        r = ((r + r.T) / 2).astype(np.float32)
+        got = ClusterEngine(device=cuda_device).spectral(r, 4, rng=3)
+        assert got.dtype == torch.int32 and got.device.type == "cuda"
+        assert same_partition(got, lab)
+        host_labels = ClusterEngine(ClusterConfig(backend="numpy")).spectral(
+            r, 4, rng=3)
+        assert same_partition(got, host_labels)

@@ -35,6 +35,7 @@ Three parts:
 A disabled run records nothing and gives results bit-equal to an
 enabled run.
 """
+import dataclasses
 import json
 import threading
 
@@ -44,7 +45,7 @@ import torch
 
 import jax.numpy as jnp
 
-from _torch_support import CPU, host
+from _torch_support import CPU, fake_launches, host  # noqa: F401
 from repro import obs as ref_obs
 from repro.core import oneshot as ref_oneshot
 from repro.core import similarity as ref_sim
@@ -56,6 +57,7 @@ from repro_torch import obs
 from repro_torch.core.membership_engine import (UNASSIGNED, MembershipConfig,
                                                 MembershipEngine)
 from repro_torch.core.oneshot import CommLedger, one_shot_clustering
+from repro_torch.core.clustering import adjusted_rand_index as clu_ari
 from repro_torch.core.similarity import SimilarityConfig
 from repro_torch.kernels import build, dispatch
 from repro_torch.launch import obs as launch_obs
@@ -457,6 +459,52 @@ class TestDispatch:
             __import__("repro.kernels.tuning",
                        fromlist=["KERNELS"]).KERNELS)
 
+    def test_one_record_a_launch(self, fake_launches):
+        """The wrappers whose plan resolves through ``tuning.get_blocks``
+        record their dispatch there and not again in ``count_launch``:
+        ``kernel_calls`` and ``dispatch_count`` equal the launches, and
+        ``kernel_blocks`` holds each launch's plan (driven on CPU tensors
+        against a stand-in library)."""
+        from repro_torch.kernels import tuning
+        from repro_torch.kernels.assign import ops as assign_ops
+        from repro_torch.kernels.gram import batched_gram_matrix
+        from repro_torch.kernels.gram_project import ops as gp_ops
+        from repro_torch.kernels.recurrent_scan import ops as rs_ops
+
+        tuning.clear_cache()
+        gen = torch.Generator().manual_seed(0)
+        v = torch.randn(16, 64, 8, generator=gen)
+        p = torch.randn(4, 64, 64, generator=gen)
+        before = dict(dispatch.LAUNCHES)
+        with obs.scope(True):
+            for cd in ("bf16", "fp32"):
+                assign_ops.assign(v, p, compute_dtype=cd)
+                assign_ops.assign_looped(v, p, compute_dtype=cd)
+            gp_ops.batched_gram_project(torch.randn(3, 40, 512),
+                                        torch.randn(512, 8))
+            a = torch.randn(1, 64, 32)
+            rs_ops.linear_scan(a, a, torch.zeros(1, 32))
+            batched_gram_matrix(torch.randn(2, 16, 8))
+        launched = {k: dispatch.LAUNCHES[k] - before[k] for k in before}
+        assert launched == {**{k: 0 for k in before}, "assign_wave": 2,
+                            "assign_one": 2, "gram_project": 1,
+                            "linear_scan": 1, "gram": 1}
+        want = {"assign": 4, "gram_project": 1, "recurrent_scan": 1,
+                "gram": 1}
+        assert {k: obs.counter_value("kernel_calls", kernel=k)
+                for k in want} == want
+        assert obs.counter_total("kernel_calls") == sum(launched.values())
+        assert obs.counter_value("dispatch_count") == sum(launched.values())
+        assert obs.gauge_value("kernel_blocks",
+                               kernel="gram_project") == ",".join(
+            f"{k}={val}" for k, val in sorted(dataclasses.asdict(
+                gp_ops.project_plan(512)).items()))
+        scan = rs_ops.linear_scan_plan(1, 64, 32)
+        assert obs.gauge_value("kernel_blocks",
+                               kernel="recurrent_scan") == ",".join(
+            f"{k}={val}" for k, val in sorted(dataclasses.asdict(
+                scan).items()))
+
     def test_plain_versions_record_nothing(self):
         """On the CPU the wrappers run their plain versions: no launch,
         no dispatch recorded."""
@@ -767,6 +815,31 @@ class TestParityContract:
         assert_parity(port, ref)
         assert [r["name"] for r in port["trace"]] == [
             "signature.signatures", "signature.accumulate_grams"]
+
+    @pytest.mark.parametrize("backend", ["numpy", "torch"])
+    def test_cluster_spectral(self, backend):
+        """``ClusterEngine.spectral``: the ``cluster.spectral`` span with
+        ``backend`` and ``n_clusters``, synced on the device path."""
+        from repro.core.cluster_engine import (ClusterConfig as RefCC,
+                                               ClusterEngine as RefCE)
+        from repro_torch.core.cluster_engine import (ClusterConfig,
+                                                     ClusterEngine)
+
+        rng = np.random.default_rng(5)
+        lab = np.repeat(np.arange(3), 4)
+        r = np.where(lab[:, None] == lab[None, :], 0.9, 0.2) \
+            + rng.uniform(-0.02, 0.02, (12, 12))
+        r = (r + r.T) / 2
+        port, out = _record(obs, lambda: ClusterEngine(
+            ClusterConfig(backend=backend), device="cpu").spectral(r, 3))
+        ref, _ = _record(ref_obs, lambda: RefCE(RefCC(
+            backend={"numpy": "numpy", "torch": "jnp"}[backend])).spectral(
+                r, 3))
+        assert_parity(port, ref)
+        assert [r_["name"] for r_ in port["trace"]] == ["cluster.spectral"]
+        assert port["trace"][0]["meta"]["n_clusters"] == 3
+        assert port["trace"][0]["meta"]["backend"] == backend
+        assert clu_ari(host(out), lab) == 1.0
 
     @pytest.mark.parametrize("backend", ["numpy", "torch"])
     def test_membership_serving(self, backend):
