@@ -143,6 +143,24 @@ two-level protocol and the sharded paths:
        ``kernel_roofline`` for gram and eigproject at the dense cell's
        shape beside phase 4's bounds.  Phases 1-5 run with no tuner cache
        (``REPRO_TORCH_TUNE_CACHE`` unset).
+  [3s] the LM-at-scale launch family on a (1, 1) ("data", "model") mesh
+       over a one-rank NCCL group (its own setup and teardown): (a)
+       ``steps.make_train_step`` on Qwen3-1.7B CONFIG, 3 steps on 3q(a)'s
+       batches, against ``launch/train.py::train_step`` from the same
+       weights (losses and parameters bit-equal, or within 1e-6 x
+       max(1, |x|)), s a step and the aten ops of a traced step; (b)
+       ``make_prefill_step`` at 3g's cell, flash through ``local_map``:
+       28 launches, logits against ``forward(last_only=True)``; (c)
+       ``make_serve_step``, 16 greedy tokens of Qwen3 (batch 8, cache
+       4096) and RWKV-6 against the ``decode_step`` loop's; (d)
+       ``manual_tp.make_manual_train_step`` at 4 layers against the auto
+       step's loss (1e-4 x max(1, |loss|)); (e) ``launch.dryrun`` of qwen3
+       x {train_4k, decode_32k} x pod on a fake CUDA mesh in subprocesses
+       started at the top of the phase: status, 256 chips, finite FLOPs
+       and bytes, the bottleneck, the useful-FLOPs ratio in (0, 1.05],
+       and the splits that gathered a mesh axis.  3m's and 3n's logits
+       are also held to the parent commit's boolean-mask MoE dispatch
+       (``moe.dispatch`` patched), bit for bit.
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -224,6 +242,11 @@ non-zero and prints no result.  It imports nothing of JAX.
 
 runs phase 3q(c) alone at Qwen3-1.7B's published widths (4 layers) and
 ends with the same last line.
+
+    python3 chip_smoke.py --mesh-cards 4
+
+needs 4 cards and reports, without a gate, phase 3s(a) on a (2, 2) mesh
+and 3s(d) on a (1, 4) mesh, one NCCL rank a card.
 """
 from __future__ import annotations
 
@@ -373,6 +396,14 @@ OBS_PIECE_CALLS = 200
 # (batch x sequence); the checkpoint resume at RESUME_LAYERS layers, saved
 # after RESUME_AT steps.
 TRAIN_LM_SHAPE, TRAIN_LM_STEPS, TRAIN_LM_LR = (2, 1024), 10, 3e-3
+# Phase 3s: the mesh-aware steps on a (1, 1) mesh.  Train steps on 3q's
+# batches, serving cells (arch, batch, cache length) and greedy tokens,
+# the manual TP+SP step's depth, and the dry run's pod-mesh shapes.
+MESH_TRAIN_STEPS = 3
+MESH_SERVE_CELLS = (("qwen3_1_7b", 8, 4096), ("rwkv6_1_6b", 8, 4096))
+MESH_SERVE_TOKENS = 16
+MESH_MANUAL_LAYERS = 4
+DRYRUN_SHAPES, DRYRUN_TIMEOUT_S = ("train_4k", "decode_32k"), 600
 TRAIN_LM_CHECK_ARCHS = ("qwen3_1_7b", "rwkv6_1_6b", "phi3_5_moe")
 TRAIN_LM_CHECK_SHAPE = (2, 64)
 RESUME_LAYERS, RESUME_AT = 4, 5
@@ -1030,6 +1061,104 @@ def resume_at_published_widths(torch) -> int:
     return 0
 
 
+def mesh4_rank(rank: int, world: int) -> dict:
+    """One rank of ``--mesh-cards 4`` (report only, no gate): phase 3s(a)
+    on a (2, 2) ("data", "model") mesh, 3 steps of Qwen3-1.7B CONFIG on
+    3q(a)'s batches, and 3s(d) on a (1, 4) mesh: the manual TP+SP loss
+    at 4 layers against the auto step's on the same weights."""
+    import torch
+
+    from repro_torch import optim as port_optim
+    from repro_torch.configs.base import get_arch
+    from repro_torch.launch import manual_tp as lm_MT
+    from repro_torch.launch import mesh as lm_mesh
+    from repro_torch.launch import sharding as lm_SH
+    from repro_torch.launch import steps as lm_ST
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models.registry import get_model
+
+    dev = torch.device("cuda", rank)
+    out: dict = {}
+    # (a) (2, 2)
+    mesh = lm_mesh.make_mesh((2, 2), ("data", "model"))
+    cfg = get_arch("qwen3_1_7b")
+    m = get_model(cfg)
+    it = launch_train.batch_stream(cfg, *TRAIN_LM_SHAPE)
+    opt = launch_train.make_optimizer(TRAIN_LM_LR, MESH_TRAIN_STEPS)
+    model = m.init(SEED, device=dev).requires_grad_(True)
+    lm_SH.attach(model, lm_SH.param_specs(cfg, model, mesh), mesh)
+    state = opt.init({k: p.detach() for k, p in model.named_parameters()})
+    step = lm_ST.make_train_step(cfg, mesh, opt,
+                                 clip_norm=launch_train.CLIP_NORM)
+    losses, times = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        b = launch_train.make_batch(cfg, next(it), i, dev)
+        b = lm_SH.attach(b, lm_SH.batch_specs(b, mesh), mesh)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, res = step(model, state, b)
+        losses.append(float(res["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    out["a"] = dict(losses=losses, s_steps=times,
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    del model, state
+    torch.cuda.empty_cache()
+    # (d) (1, 4)
+    mesh = lm_mesh.make_mesh((1, 4), ("data", "model"))
+    cfg = dataclasses.replace(get_arch("qwen3_1_7b"),
+                              n_layers=MESH_MANUAL_LAYERS)
+    m = get_model(cfg)
+    batch = launch_train.make_batch(cfg, next(launch_train.batch_stream(
+        cfg, *TRAIN_LM_SHAPE)), 0, dev)
+    opt = port_optim.adamw(TRAIN_LM_LR)
+    model = m.init(SEED, device=dev).requires_grad_(True)
+    named = {k: p.detach().clone() for k, p in model.named_parameters()}
+    lm_SH.attach(model, lm_SH.param_specs(cfg, model, mesh), mesh)
+    st = opt.init({k: p.detach() for k, p in model.named_parameters()})
+    _, res = lm_ST.make_train_step(cfg, mesh, opt)(
+        model, st, lm_SH.attach(batch, lm_SH.batch_specs(batch, mesh), mesh))
+    del model, st
+    step_d, specs = lm_MT.make_manual_train_step(cfg, mesh, opt)
+    local = lm_MT.local_shards(named, specs, mesh)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, _, res_d = step_d(local, opt.init(local), batch)
+    loss_d = float(res_d["loss"])
+    torch.cuda.synchronize()
+    out["d"] = dict(loss_manual=loss_d, loss_auto=float(res["loss"]),
+                    s_manual=time.perf_counter() - t0)
+    return out
+
+
+def mesh_cards(torch, cards: int) -> int:
+    """``--mesh-cards 4``: ``mesh4_rank`` on 4 cards, one NCCL rank a card;
+    prints what each rank measured (no gate)."""
+    from repro_torch.core import distributed as mdist
+
+    require(cards == 4 and torch.cuda.device_count() >= 4,
+            f"--mesh-cards takes 4 and 4 cards "
+            f"({torch.cuda.device_count()} here)")
+    print(f"[1] card: {card_line()}")
+    t = time.perf_counter()
+    outs = mdist.run_ranks(mesh4_rank, 4, "cuda", timeout=1500)
+    for r, o in enumerate(outs):
+        print(f"  rank {r}: (a) (2, 2) losses {o['a']['losses']}, s a "
+              f"step {[round(x, 3) for x in o['a']['s_steps']]}, peak "
+              f"{o['a']['peak_gib']:.2f} GiB; (d) (1, 4) manual loss "
+              f"{o['d']['loss_manual']:.6f}, auto "
+              f"{o['d']['loss_auto']:.6f} (gap "
+              f"{abs(o['d']['loss_manual'] - o['d']['loss_auto']):.3e}), "
+              f"manual step {o['d']['s_manual']:.3f} s")
+    print(json.dumps({"mesh_cards": outs,
+                      "wall_s": time.perf_counter() - t}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -1039,6 +1168,9 @@ def main(argv=None) -> int:
     ap.add_argument("--resume-at-published-widths", action="store_true",
                     help="run only phase 3q(c)'s checkpoint resume, at "
                     "qwen3_1_7b's published widths")
+    ap.add_argument("--mesh-cards", type=int, default=0,
+                    help="run only phase 3s(a) on a (2, 2) mesh and 3s(d) "
+                    "on a (1, 4) mesh, one rank a card (give 4)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1048,6 +1180,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     if args.resume_at_published_widths:
         return resume_at_published_widths(torch)
+    if args.mesh_cards:
+        return mesh_cards(torch, args.mesh_cards)
     import numpy as np
 
     import torch.distributed as tdist
@@ -2304,6 +2438,15 @@ def main(argv=None) -> int:
         with mock.patch.object(lm_moe, "route", replay):
             yield
 
+    def parent_dispatch(xt_, slot, keep, n_slots):
+        """``moe.dispatch`` as the parent commit wrote it: kept picks
+        through a boolean mask (data-dependent shapes)."""
+        t_, k_ = slot.shape
+        xe = xt_.new_zeros((n_slots, xt_.shape[1]))
+        tok_ = torch.arange(t_, device=xt_.device)[:, None].expand(t_, k_)
+        xe[slot[keep]] = xt_[tok_[keep]]
+        return xe
+
     def prefill_cell(path, arch, batch_seq, kernel_kw, plain_kw, expect,
                      cut=None, patches=False, draws=None):
         """``forward(last_only=True)`` through the kernels, then the same
@@ -2423,6 +2566,20 @@ def main(argv=None) -> int:
         summary["paths"][path].update(plain_wall_s=wall_p, gap_kernel=gap_k,
                                       gap_plain_bf16=gap_p)
         if moe_cell:
+            # the parent commit's dispatch (a boolean-mask write) on the
+            # same inputs: the shape-static write must give its bits
+            with mock.patch.object(lm_moe, "dispatch", parent_dispatch):
+                logits_parent = model.forward(params, batch,
+                                              last_only=True)[0]
+            same_parent = torch.equal(logits_parent, logits_k)
+            print(f"  MoE dispatch: the logits "
+                  f"{'equal' if same_parent else 'DIFFER from'} the "
+                  f"parent's boolean-mask dispatch bit for bit")
+            require(same_parent, f"{path}: logits differ from the parent "
+                    f"dispatch's")
+            summary["paths"][path]["parent_dispatch_bit_equal"] = \
+                same_parent
+            del logits_parent
             picks = b_ * s_ * cfg.moe_top_k
             dropped = [1.0 - float(r["keep"].float().mean())
                        for r in routes_k]
@@ -4187,6 +4344,299 @@ def main(argv=None) -> int:
                                       for k, v_ in part_s.items()))
     phase_done("phase 3r")
 
+    # -- Phase 3s: the LM-at-scale launch family on a (1, 1) mesh ----------
+    # The mesh-aware steps on DTensors over a one-rank NCCL group (its own
+    # setup and teardown, as 3l's), each against the unsharded path on the
+    # same weights and inputs; the manual TP+SP step; the dry run of the
+    # production pod mesh in subprocesses (host work only: it starts while
+    # (a)-(d) hold the card).
+    from repro_torch.launch import manual_tp as lm_MT
+    from repro_torch.launch import mesh as lm_mesh
+    from repro_torch.launch import roofline as lm_RL
+    from repro_torch.launch import sharding as lm_SH
+    from repro_torch.launch import steps as lm_ST
+
+    print("[3s] the launch family on a (1, 1) ('data', 'model') mesh over "
+          "a one-rank NCCL group: make_train_step, make_prefill_step, "
+          "make_serve_step, make_manual_train_step; the dry run on the "
+          "16 x 16 pod mesh")
+    p3s = summary.setdefault("phase_3s", {})
+    src_dir = str(Path(__file__).resolve().parent / "src")
+    dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry = {}
+    for shape_ in DRYRUN_SHAPES:
+        dry[shape_] = time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "qwen3_1_7b", "--shape", shape_, "--mesh", "pod", "--out-dir",
+             dry_dir, "--device-type", "cuda"], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True,
+            env=dict(os.environ, PYTHONPATH=src_dir))
+    store_s = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    torch.cuda.set_device(dev)
+    tdist.init_process_group("nccl", init_method=f"file://{store_s}/store",
+                             world_size=1, rank=0)
+    try:
+        mesh_s = lm_mesh.make_mesh((1, 1), ("data", "model"))
+        require(tdist.get_backend(mesh_s.get_group("model")) == "nccl",
+                "3s: the mesh's group is not an NCCL group")
+
+        def bits_or_gap(name, got, want):
+            """``got`` against ``want``: bit-equal, or the gap, held to
+            1e-6 x max(1, |x|)."""
+            if torch.equal(got, want):
+                return 0.0
+            gap = float(((got.float() - want.float()).abs()
+                         / want.float().abs().clamp(min=1.0)).max())
+            require(gap <= 1e-6, f"3s: {name} off by {gap:.3e} (relative "
+                    f"to max(1, |x|))")
+            return gap
+
+        # (a) make_train_step against launch/train.py's step, 3q(a)'s
+        # config and batches, from the same initial weights.
+        cfg_s = get_arch("qwen3_1_7b")
+        m_s = get_model(cfg_s)
+        it_s = launch_train.batch_stream(cfg_s, *TRAIN_LM_SHAPE)
+        batches_s = [launch_train.make_batch(cfg_s, next(it_s), i, dev)
+                     for i in range(MESH_TRAIN_STEPS)]
+        opt_s = launch_train.make_optimizer(TRAIN_LM_LR, MESH_TRAIN_STEPS)
+
+        def run_train(model, state, step, batches):
+            """The steps, each timed alone; the last one traced, for the
+            aten ops a rank dispatches (the trace changes no value)."""
+            losses, times = [], []
+            for i, b_ in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if i == len(batches) - 1:
+                    (state, loss), rec = lm_RL.trace_step(step, model,
+                                                          state, b_)
+                else:
+                    state, loss = step(model, state, b_)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+                losses.append(float(loss))
+            return state, losses, times, rec.ops
+
+        model_p = m_s.init(SEED, device=dev).requires_grad_(True)
+        state_p = opt_s.init(dict(model_p.named_parameters()))
+        state_p, losses_p, times_p, ops_p = run_train(
+            model_p, state_p, lambda mo, st, b_: launch_train.train_step(
+                m_s, mo, opt_s, st, b_), batches_s)
+        # two models with their AdamW states do not fit the card at once:
+        # the plain one's parameters wait on the host
+        params_p = {k: p_.detach().cpu()
+                    for k, p_ in model_p.named_parameters()}
+        del model_p, state_p
+        torch.cuda.empty_cache()
+        model_m = m_s.init(SEED, device=dev).requires_grad_(True)
+        lm_SH.attach(model_m, lm_SH.param_specs(cfg_s, model_m, mesh_s),
+                     mesh_s)
+        state_m = opt_s.init({k: p_.detach()
+                              for k, p_ in model_m.named_parameters()})
+        step_m = lm_ST.make_train_step(cfg_s, mesh_s, opt_s,
+                                       clip_norm=launch_train.CLIP_NORM)
+        dbatches = [lm_SH.attach(b_, lm_SH.batch_specs(b_, mesh_s), mesh_s)
+                    for b_ in batches_s]
+        dispatch.reset_launches()
+        state_m, losses_m, times_m, ops_m = run_train(
+            model_m, state_m, lambda mo, st, b_: (
+                lambda out: (out[0], out[1]["loss"]))(step_m(mo, st, b_)),
+            dbatches)
+        launches_sa = dict(dispatch.LAUNCHES)
+        gaps = {"loss": max(bits_or_gap("loss", torch.tensor(a_),
+                                        torch.tensor(b_))
+                            for a_, b_ in zip(losses_m, losses_p))}
+        gaps["params"] = max(bits_or_gap(k, p_.to_local().cpu(),
+                                         params_p[k])
+                             for k, p_ in model_m.named_parameters())
+        s_p, s_m = times_p[1], times_m[1]
+        print(f"  (a) {MESH_TRAIN_STEPS} steps of {cfg_s.name} CONFIG "
+              f"(bf16, remat) on 3q(a)'s batches: losses {losses_m} on "
+              f"the mesh, {losses_p} by launch/train.py; largest gaps: "
+              f"loss {gaps['loss']:.3e}, parameters {gaps['params']:.3e} "
+              f"(0 is bit-equal); step 2 took {s_m:.3f} s on the mesh "
+              f"against {s_p:.3f} s; aten ops of step {MESH_TRAIN_STEPS} "
+              f"(traced) {ops_m} against {ops_p} (3q's traced step: "
+              f"17,355 kernel launches); hand-written kernel launches "
+              f"{sum(launches_sa.values())}")
+        p3s["a"] = dict(losses_mesh=losses_m, losses_plain=losses_p,
+                        gaps=gaps, s_step_mesh=s_m, s_step_plain=s_p,
+                        ops_mesh=ops_m, ops_plain=ops_p)
+        del params_p, model_m, state_m, dbatches, batches_s
+        torch.cuda.empty_cache()
+
+        # (b) make_prefill_step at 3g's cell: the flash kernel on the
+        # local (batch, head) shards through local_map.
+        cfg_b = dataclasses.replace(get_arch("qwen3_1_7b"),
+                                    attn_impl="pallas")
+        m_b = get_model(cfg_b)
+        model_b = m_b.init(SEED, device=dev)
+        gen_s = torch.Generator(device="cpu").manual_seed(SEED)
+        toks_b = torch.randint(0, cfg_b.vocab, DENSE_PREFILL,
+                               generator=gen_s).to(dev)
+        with torch.no_grad():
+            want_b = m_b.forward(model_b, {"tokens": toks_b},
+                                 last_only=True)[0][:, -1, :]
+        lm_SH.attach(model_b, lm_SH.param_specs(cfg_b, model_b, mesh_s),
+                     mesh_s)
+        prefill = lm_ST.make_prefill_step(cfg_b, mesh_s)
+        dbatch_b = lm_SH.attach({"tokens": toks_b}, lm_SH.batch_specs(
+            {"tokens": toks_b}, mesh_s), mesh_s)
+        prefill(model_b, {"tokens": dbatch_b["tokens"][:, :64]})
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        got_b = prefill(model_b, dbatch_b)
+        torch.cuda.synchronize()
+        wall_b = time.perf_counter() - t0
+        launches_sb = dict(dispatch.LAUNCHES)
+        gap_b = bits_or_gap("prefill logits", got_b.to_local(), want_b)
+        require(launches_sb["flash_attention"] == cfg_b.n_layers,
+                f"3s(b): flash launched {launches_sb['flash_attention']} "
+                f"times, not {cfg_b.n_layers}")
+        print(f"  (b) make_prefill_step, {DENSE_PREFILL[0]} x "
+              f"{DENSE_PREFILL[1]} tokens, attn_impl pallas: last-position "
+              f"logits gap {gap_b:.3e} to forward(last_only=True) (0 is "
+              f"bit-equal); launches {launches_sb}; {wall_b:.3f} s")
+        p3s["b"] = dict(gap=gap_b, launches=launches_sb, wall_s=wall_b)
+        del model_b, got_b, want_b
+        torch.cuda.empty_cache()
+
+        # (c) make_serve_step: greedy tokens from init_decode_state
+        # against the unsharded decode_step loop.
+        p3s["c"] = {}
+        for arch_c, batch_c, cache_c in MESH_SERVE_CELLS:
+            cfg_c = get_arch(arch_c)
+            m_c = get_model(cfg_c)
+            model_c = m_c.init(SEED, device=dev)
+            first = torch.randint(0, cfg_c.vocab, (batch_c, 1),
+                                  generator=gen_s).to(dev)
+            state_c = m_c.init_decode_state(batch_c, cache_c, device=dev)
+            tok, want_c = first, []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                for _ in range(MESH_SERVE_TOKENS):
+                    logits_c, state_c = m_c.decode_step(model_c, tok,
+                                                        state_c)
+                    tok = torch.argmax(logits_c[:, -1, :], -1).to(
+                        torch.int32)[:, None]
+                    want_c.append(tok[:, 0])
+            torch.cuda.synchronize()
+            wall_cp = time.perf_counter() - t0
+            del state_c
+            lm_SH.attach(model_c, lm_SH.param_specs(cfg_c, model_c,
+                                                    mesh_s), mesh_s)
+            state_c = m_c.init_decode_state(batch_c, cache_c, device=dev)
+            state_c = lm_SH.attach(state_c, lm_SH.state_specs(
+                state_c, mesh_s), mesh_s)
+            serve = lm_ST.make_serve_step(cfg_c, mesh_s)
+            tok, got_c = first, []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_SERVE_TOKENS):
+                b_ = lm_SH.attach({"tokens": tok}, lm_SH.batch_specs(
+                    {"tokens": tok}, mesh_s), mesh_s)
+                nxt, state_c = serve(model_c, state_c, b_)
+                tok = lm_ST.to_full(nxt)[:, None]
+                got_c.append(tok[:, 0])
+            torch.cuda.synchronize()
+            wall_cm = time.perf_counter() - t0
+            same = all(torch.equal(a_, b_) for a_, b_ in zip(got_c, want_c))
+            print(f"  (c) make_serve_step, {cfg_c.name} batch {batch_c}, "
+                  f"cache {cache_c}: {MESH_SERVE_TOKENS} greedy tokens "
+                  f"{'equal' if same else 'DIFFER from'} the decode_step "
+                  f"loop's; {wall_cm / MESH_SERVE_TOKENS * 1e3:.2f} ms a "
+                  f"token on the mesh against "
+                  f"{wall_cp / MESH_SERVE_TOKENS * 1e3:.2f} ms")
+            require(same, f"3s(c): {arch_c}'s tokens differ")
+            p3s["c"][arch_c] = dict(equal=same,
+                                    ms_token_mesh=wall_cm
+                                    / MESH_SERVE_TOKENS * 1e3,
+                                    ms_token_plain=wall_cp
+                                    / MESH_SERVE_TOKENS * 1e3)
+            del model_c, state_c
+            torch.cuda.empty_cache()
+
+        # (d) make_manual_train_step at published widths, 4 layers,
+        # against the auto step's loss on the same weights and batch.
+        cfg_d = dataclasses.replace(get_arch("qwen3_1_7b"),
+                                    n_layers=MESH_MANUAL_LAYERS)
+        m_d = get_model(cfg_d)
+        it_d = launch_train.batch_stream(cfg_d, *TRAIN_LM_SHAPE)
+        batch_d = launch_train.make_batch(cfg_d, next(it_d), 0, dev)
+        opt_d = port_optim.adamw(TRAIN_LM_LR)
+        model_d = m_d.init(SEED, device=dev).requires_grad_(True)
+        named_d = {k: p_.detach().clone()
+                   for k, p_ in model_d.named_parameters()}
+        lm_SH.attach(model_d, lm_SH.param_specs(cfg_d, model_d, mesh_s),
+                     mesh_s)
+        st_d = opt_d.init({k: p_.detach()
+                           for k, p_ in model_d.named_parameters()})
+        _, out_auto = lm_ST.make_train_step(cfg_d, mesh_s, opt_d)(
+            model_d, st_d, lm_SH.attach(batch_d, lm_SH.batch_specs(
+                batch_d, mesh_s), mesh_s))
+        loss_auto = float(out_auto["loss"])
+        del model_d, st_d
+        step_d, specs_d = lm_MT.make_manual_train_step(cfg_d, mesh_s, opt_d)
+        local_d = lm_MT.local_shards(named_d, specs_d, mesh_s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, out_man = step_d(local_d, opt_d.init(local_d), batch_d)
+        loss_man = float(out_man["loss"])
+        wall_d = time.perf_counter() - t0
+        gap_d = abs(loss_man - loss_auto)
+        print(f"  (d) make_manual_train_step, {cfg_d.name} at published "
+              f"widths, {cfg_d.n_layers} layers: loss {loss_man:.6f} "
+              f"against the auto step's {loss_auto:.6f} (gap {gap_d:.3e}; "
+              f"bar 1e-4 x max(1, |loss|)); {wall_d:.3f} s")
+        require(gap_d <= 1e-4 * max(1.0, abs(loss_auto)),
+                f"3s(d): manual loss {loss_man} vs auto {loss_auto}")
+        p3s["d"] = dict(loss_manual=loss_man, loss_auto=loss_auto,
+                        gap=gap_d, wall_s=wall_d)
+        del named_d, local_d
+        torch.cuda.empty_cache()
+    finally:
+        tdist.destroy_process_group()
+
+    # (e) the dry runs, started at the top of the phase.
+    p3s["e"] = {}
+    for shape_, (t0, proc) in dry.items():
+        out_e, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        wall_e = time.perf_counter() - t0
+        require(proc.returncode == 0, f"3s(e): the dry run of {shape_} "
+                f"failed (rc {proc.returncode}):\n{out_e[-3000:]}")
+        art = json.loads((Path(dry_dir) / f"qwen3_1_7b__{shape_}__pod.json")
+                         .read_text())
+        roof = art["roofline"]
+        ok = (art["status"] == "ok" and art["chips"] == 256
+              and all(0 < roof[k] < float("inf")
+                      for k in ("hlo_flops_per_device",
+                                "hlo_bytes_per_device"))
+              and roof["bottleneck"] in ("compute", "memory", "collective")
+              and 0 < roof["useful_flops_ratio"] <= 1.05
+              and art["sharding"]["mesh_device_type"] == "cuda")
+        print(f"  (e) dry run qwen3_1_7b x {shape_} x pod: {art['status']}, "
+              f"{art['chips']} chips, bottleneck {roof['bottleneck']}, "
+              f"useful FLOPs ratio {roof['useful_flops_ratio']:.4f}, "
+              f"{roof['hlo_flops_per_device']:.4g} FLOPs and "
+              f"{roof['hlo_bytes_per_device']:.4g} bytes (unfused) a "
+              f"device (FLOPs by class {art['flops_counted']}), "
+              f"collectives {roof['collective_counts']}, axes gathered "
+              f"by splits {art['sharding']['replicated']}; wall "
+              f"{wall_e:.1f} s (full depth {art['lower_s']} s, variants "
+              f"{art['compile_s']} s)")
+        require(ok, f"3s(e): the {shape_} artifact fails its bars")
+        p3s["e"][shape_] = dict(bottleneck=roof["bottleneck"],
+                                useful_flops_ratio=roof[
+                                    "useful_flops_ratio"], wall_s=wall_e,
+                                memory=art["memory"],
+                                flops_counted=art["flops_counted"],
+                                collective_counts=roof["collective_counts"],
+                                replicated=art["sharding"]["replicated"])
+    shutil.rmtree(dry_dir, ignore_errors=True)
+    phase_done("phase 3s")
+
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "
           "shapes (CUDA events)")
@@ -4749,6 +5199,7 @@ def main(argv=None) -> int:
                                     skv_=ENCDEC_FRAMES[1])}
     flash_by_path = {
         "prefill_dense": launches_g["flash_attention"],
+        "prefill_mesh": launches_sb["flash_attention"],
         "prefill_hybrid": launches_h["flash_attention"],
         "prefill_moe": launches_m["flash_attention"],
         "prefill_fusion": launches_n["flash_attention"],

@@ -58,7 +58,8 @@ __all__ = ["similarity_config_from_reference",
            "membership_config_from_reference", "lm_params_from_reference",
            "encdec_params_from_reference", "lm_params_to_reference",
            "encdec_params_to_reference", "reference_tree",
-           "reference_named", "cluster_heads_from_reference",
+           "reference_named", "reference_paths",
+           "cluster_heads_from_reference",
            "paper_cnn_params_from_reference",
            "paper_mlp_params_from_reference", "mthfl_config_from_reference",
            "ifca_config_from_reference"]
@@ -292,6 +293,44 @@ def reference_tree(cfg, params) -> dict:
         out["groups_unrolled"] = groups
     out["rest"] = {str(j): blocks[cfg.n_groups * width + j]
                    for j in range(len(cfg.rest_kinds))}
+    return out
+
+
+class _Leaf:
+    """A parameter's name and shape, standing in for its tensor in the
+    walk of ``reference_paths`` (an opaque object: stacking makes a
+    numpy object array of them)."""
+
+    __slots__ = ("name", "shape")
+
+    def __init__(self, name: str, shape: tuple[int, ...]):
+        self.name, self.shape = name, shape
+
+
+def reference_paths(cfg, params) -> dict:
+    """Parameter name -> ``(path, shape)`` of its leaf in the reference's
+    tree: ``path`` the tree's keys (a list index as a string, as
+    ``jax.tree_util`` prints it), ``shape`` the leaf's shape there, with
+    the leading stacked-layer axis where the reference stacks one.  The
+    walk is ``reference_tree``'s, over shapes only (``params`` an
+    ``LM``, an ``EncDec`` or a dict of tensors, real or fake)."""
+    out: dict = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for key, val in node.items():
+                walk(val, path + (str(key),))
+        elif isinstance(node, list):
+            for i, val in enumerate(node):
+                walk(val, path + (str(i),))
+        elif isinstance(node, np.ndarray):          # a stacked leaf
+            for leaf in node:
+                out[leaf.name] = (path, (len(node),) + leaf.shape)
+        else:
+            out[node.name] = (path, node.shape)
+
+    walk(reference_tree(cfg, {name: _Leaf(name, tuple(t.shape))
+                              for name, t in _named(params).items()}), ())
     return out
 
 

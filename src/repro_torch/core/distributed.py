@@ -27,10 +27,11 @@ import traceback
 
 import torch
 import torch.distributed as dist
+import torch.distributed._functional_collectives as funcol
 
 __all__ = ["make_user_mesh", "axis_group", "check_backend", "local_rows",
            "all_gather_cat", "distributed_similarity", "run_ranks",
-           "BACKEND_FOR"]
+           "sum_replicated", "grad_summed", "BACKEND_FOR"]
 
 #: The collective backend each device type takes.
 BACKEND_FOR = {"cuda": "nccl", "cpu": "gloo"}
@@ -232,3 +233,52 @@ def run_ranks(fn, world: int, device_type: str = "cuda", args: tuple = (),
         out.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
+
+# ---------------------------------------------------------------------------
+# Collectives with autograd: the transposes shard_map gives the reference
+# ---------------------------------------------------------------------------
+
+class _SumReplicated(torch.autograd.Function):
+    """All-reduce (sum) over a process group of per-rank partials into a
+    value the rest of the computation treats as replicated: its backward
+    is the identity (each rank's partial gets the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GradSummed(torch.autograd.Function):
+    """The identity, whose backward sums the gradient over a process
+    group: a value replicated over ranks that each use it on their own
+    shard of the other operands (Megatron's "f")."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return funcol.wait_tensor(funcol.all_reduce(
+            grad.contiguous(), "sum", ctx.group)), None
+
+
+def grad_summed(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x``, with its gradient summed over each process group of
+    ``groups`` (``_GradSummed``)."""
+    for g in groups:
+        x = _GradSummed.apply(x, g)
+    return x
+
+
+def sum_replicated(x: torch.Tensor, groups) -> torch.Tensor:
+    """``x`` summed over each process group of ``groups``
+    (``_SumReplicated``)."""
+    for g in groups:
+        x = _SumReplicated.apply(x, g)
+    return x

@@ -26,7 +26,8 @@ from repro_torch import obs
 
 __all__ = ["LAUNCHES", "FAMILIES", "resolve_device", "backend_kind",
            "device_kind", "on_cuda", "count_launch", "reset_launches",
-           "stream_of", "aligned16", "record_dispatch", "refuse_grad"]
+           "stream_of", "aligned16", "record_dispatch", "refuse_grad",
+           "on_local_shards"]
 
 #: Kernel name -> launches since the last ``reset_launches()``.  Each
 #: wrapper adds one where it launches its kernel, and nowhere else.
@@ -102,6 +103,116 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
             f"requires grad; launch it under torch.no_grad(), or train on "
             f"the plain path (attn_impl='jnp', rec_impl 'chunked' or "
             f"'scan'), as the reference does")
+
+
+def _align(kernel: str, args: tuple, in_dims: tuple[str, ...], local: str,
+           move: bool) -> tuple:
+    """The arguments placed alike: each mesh axis shards one labelled dim
+    in every argument that has it (a replicated argument takes its local
+    slice, which moves nothing; a partial sum is summed first).  One axis
+    over different dims raises; so does an axis over a dim outside ``local``,
+    unless ``move``: then every argument's sharding on that axis is moved
+    onto one ``local`` dim that it divides and no other axis shards (one
+    an argument is sharded on already, else the first in ``local``'s
+    order), all-to-alls (a scan's sequence traded for its heads), never a
+    gather."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = args[0].device_mesh
+    # a partial sum is summed first (an all-reduce): its shards hold no
+    # values of their own
+    args = tuple(a.redistribute(mesh, [
+        Replicate() if p.is_partial() else p for p in a.placements])
+        if any(p.is_partial() for p in a.placements) else a for a in args)
+    targets: list[str | None] = []
+    for axis in range(mesh.ndim):
+        labels = {dims[a.placements[axis].dim]
+                  for a, dims in zip(args, in_dims)
+                  if isinstance(a.placements[axis], Shard)}
+        if not move:
+            if len(labels) > 1:
+                raise ValueError(f"{kernel}: mesh axis {axis} shards "
+                                 f"different dims of its inputs")
+            if labels and not labels <= set(local):
+                raise ValueError(
+                    f"{kernel}: mesh axis {axis} shards dim "
+                    f"{labels.pop()!r}; the kernel takes only {local!r} "
+                    f"dims sharded")
+            targets.append(labels.pop() if labels else None)
+            continue
+        label = None
+        kept = [lb for lb in local if lb in labels]
+        if kept:
+            # a dim some argument is already sharded on stays (a dim over
+            # several axes is split in mesh order)
+            label = kept[0]
+        elif labels:
+            size = mesh.size(axis)
+            fits = [lb for lb in local if lb not in targets and all(
+                a.shape[dims.index(lb)] % size == 0
+                for a, dims in zip(args, in_dims) if lb in dims)]
+            label = fits[0] if fits else None
+            if label is None:
+                raise ValueError(f"{kernel}: mesh axis {axis} shards a dim "
+                                 f"outside {local!r}, and no {local!r} dim "
+                                 f"divides over it")
+        targets.append(label)
+    out = []
+    for a, dims in zip(args, in_dims):
+        want = [Shard(dims.index(t)) if t is not None and t in dims
+                else Replicate() for t in targets]
+        out.append(a if list(a.placements) == want
+                   else a.redistribute(mesh, want))
+    return tuple(out), targets
+
+
+def on_local_shards(kernel: str, fn, args: tuple, in_dims: tuple[str, ...],
+                    out_dims: str | tuple[str, ...], local: str,
+                    move: bool = False):
+    """``fn(*args)``; on DTensors, ``fn`` on each rank's local shards
+    through ``local_map``.  ``in_dims`` labels each argument's dims (one
+    letter a dim, e.g. ``"bshd"``), ``out_dims`` each output's; the
+    dims in ``local`` (batch, heads, channels) are the ones a shard of
+    which the kernel computes alone.  A plain tensor among DTensors is
+    replicated (the same value on every rank).  A placement that shards
+    another dim, or one mesh axis over different dims, raises
+    (``_align``): nothing is gathered or replicated to make a launch
+    fit.  With ``move`` (the plain scans), an axis sharding
+    another dim is first moved onto a ``local`` one."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = next((a.device_mesh for a in args if isinstance(a, DTensor)),
+                None)
+    if mesh is None:
+        return fn(*args)
+    args = tuple(a if isinstance(a, DTensor) else DTensor.from_local(
+        a, mesh, [Replicate()] * mesh.ndim, run_check=False) for a in args)
+    args, targets = _align(kernel, args, in_dims, local, move)
+    # an argument replicated over an axis that shards the others (u of
+    # every batch shard) has its gradient summed over that axis
+    summed = [[mesh.get_group(i) for i, t in enumerate(targets)
+               if t is not None and t not in dims]
+              for dims in in_dims]
+    if any(summed) and torch.is_grad_enabled():
+        from repro_torch.core.distributed import grad_summed
+
+        inner = fn
+
+        def fn(*shards):
+            return inner(*(grad_summed(a, g) if g and a.requires_grad
+                           else a for a, g in zip(shards, summed)))
+
+    def placements(dims: str):
+        return tuple(Shard(dims.index(lb)) if lb is not None and lb in dims
+                     else Replicate() for lb in targets)
+
+    from torch.distributed.tensor.experimental import local_map
+
+    outs = ((placements(out_dims),) if isinstance(out_dims, str)
+            else tuple(placements(d) for d in out_dims))
+    return local_map(fn, out_placements=outs,
+                     in_placements=tuple(a.placements for a in args),
+                     device_mesh=mesh)(*args)
 
 
 def stream_of(t: torch.Tensor) -> int:

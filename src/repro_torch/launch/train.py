@@ -90,22 +90,40 @@ def make_batch(cfg: ArchConfig, raw: dict, step: int,
 
 def train_step(m: ModelBundle, model: torch.nn.Module,
                optimizer: optim.Optimizer, opt_state: optim.OptState,
-               batch: dict) -> tuple[optim.OptState, torch.Tensor]:
+               batch: dict, shard=None, grad_placements: dict | None = None,
+               clip_norm: float | None = CLIP_NORM
+               ) -> tuple[optim.OptState, torch.Tensor]:
     """One step, in place on ``model``'s parameters (which must require
     grad): returns the new optimizer state and the loss, a 0-dim tensor
-    on the device (not synchronised)."""
+    on the device (not synchronised).
+
+    Under a mesh (``launch/steps.py::make_train_step``) the parameters
+    are DTensors, ``shard`` constrains the activations, and each gradient
+    is redistributed to ``grad_placements[name]`` (its parameter's
+    placements by default) before the clip and the update.  The loss
+    then comes back as a plain tensor, its global value."""
+    from torch.distributed.tensor import DTensor
+
     params = dict(model.named_parameters())
-    loss = m.loss_fn(model, batch)
+    loss = m.loss_fn(model, batch, shard)
     grads = dict(zip(params, torch.autograd.grad(loss, list(
         params.values()))))
-    grads = optim.clip_by_global_norm(grads, CLIP_NORM)
+    for k, g in grads.items():
+        if isinstance(g, DTensor):
+            want = (grad_placements or {}).get(k, params[k].placements)
+            if tuple(g.placements) != tuple(want):
+                grads[k] = g.redistribute(g.device_mesh, want)
+    if clip_norm is not None:
+        grads = optim.clip_by_global_norm(grads, clip_norm)
     with torch.no_grad():
         values = {k: p.detach() for k, p in params.items()}
         updates, opt_state = optimizer.update(grads, opt_state, values)
         del grads
         for k, new in optim.apply_updates(values, updates).items():
             params[k].copy_(new)
-    return opt_state, loss.detach()
+    loss = loss.detach()
+    return opt_state, (loss.full_tensor() if isinstance(loss, DTensor)
+                       else loss)
 
 
 def checkpoint_tree(cfg: ArchConfig, model, opt_state: optim.OptState

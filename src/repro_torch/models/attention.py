@@ -25,9 +25,11 @@ without a causal mask (the encoder-decoder models, ``models/encdec.py``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
+from repro_torch.kernels.dispatch import on_local_shards
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_attention.ref import structural_mask
 from repro_torch.models import layers as L
@@ -75,11 +77,11 @@ def attn_init(gen, cfg: AttnConfig, dtype=torch.float32,
 
 def _project_qkv(p, cfg: AttnConfig, x, kv_x=None):
     kv_x = x if kv_x is None else kv_x
-    b, s = x.shape[:2]
-    sk = kv_x.shape[1]
-    q = L.mm(x, p.wq).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = L.mm(kv_x, p.wk).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
-    v = L.mm(kv_x, p.wv).reshape(b, sk, cfg.n_kv_heads, cfg.head_dim)
+    q = L.split_last(L.mm(x, p.wq), cfg.n_heads, cfg.head_dim)
+    k = L.split_last(L.mm(kv_x, p.wk), cfg.n_kv_heads, cfg.head_dim,
+                     replicate="kv_heads")
+    v = L.split_last(L.mm(kv_x, p.wv), cfg.n_kv_heads, cfg.head_dim,
+                     replicate="kv_heads")
     if cfg.qk_norm:
         q = L.rms_norm(q, p.q_norm)
         k = L.rms_norm(k, p.k_norm)
@@ -149,7 +151,7 @@ def attention(p, cfg: AttnConfig, x: torch.Tensor,
     """Training / prefill path.  ``x (B, S, d)`` -> ``(B, S, d)``.
     ``kv_x (B, Skv, d_kv)`` makes it cross-attention: keys and values
     from ``kv_x``, no rope, no causal mask."""
-    b, s = x.shape[:2]
+    s = x.shape[1]
     q, k, v = _project_qkv(p, cfg, x, kv_x)
     is_cross = kv_x is not None
     causal = cfg.causal and not is_cross
@@ -161,17 +163,29 @@ def attention(p, cfg: AttnConfig, x: torch.Tensor,
     groups = cfg.n_heads // cfg.n_kv_heads
     k = _expand_kv(k, groups)
     v = _expand_kv(v, groups)
+    # Sharded q/k/v reach the attention core as their local (batch,
+    # head) shards; the kernel takes them as they come, the plain paths
+    # trade a sequence sharding for heads first.
     if cfg.impl == "pallas" and mask is None:
-        out = flash_attention(q, k, v, causal=causal, window=cfg.window)
+        out = on_local_shards(
+            "flash_attention", functools.partial(
+                flash_attention, causal=causal, window=cfg.window),
+            (q, k, v), ("bshd",) * 3, "bshd", local="bh")
     elif cfg.impl == "chunked" and mask is None:
-        out = chunked_attention(q, k, v, causal=causal, window=cfg.window)
+        out = on_local_shards(
+            "chunked_attention", functools.partial(
+                chunked_attention, causal=causal, window=cfg.window),
+            (q, k, v), ("bshd",) * 3, "bshd", local="hb", move=True)
     else:
         if mask is None:
             # the reference's training mask: no window without causality
             mask = structural_mask(s, k.shape[1], causal,
                                    cfg.window if causal else 0, x.device)
-        out = multi_query_attention(q, k, v, mask)
-    return L.mm(out.reshape(b, s, -1), p.wo)
+        out = on_local_shards(
+            "attention", lambda q_, k_, v_: multi_query_attention(
+                q_, k_, v_, mask), (q, k, v), ("bshd",) * 3, "bshd",
+            local="hb", move=True)
+    return L.mm(L.merge_last(out), p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -188,29 +202,90 @@ def init_cache(cfg: AttnConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def _grouped_attention(p, cfg: AttnConfig, q, ck, cv, mask):
+def _id_shard(x, name):
+    del name
+    return x
+
+
+def _grouped_attention(p, cfg: AttnConfig, q, ck, cv, mask, shard):
     """Grouped-head attention over the cache without expanding it:
     ``q (B, C, H, hd)``, ``ck/cv (B, T, K, hd)``, ``mask`` broadcast to
-    ``(B, K, G, C, T)``."""
-    b, c = q.shape[:2]
+    ``(B, K, G, C, T)``.  The ``:K`` suffix of the logits' shard name
+    tells the rule whether the cache is kv-head or seq sharded.  A
+    sharded cache whose sequence is whole runs on its local (batch, kv
+    head) shards; a seq-sharded one takes DTensor's rules (a partial
+    softmax over the shards), every query head meeting every seq shard:
+    q is replicated over the axes that shard the cache's sequence before
+    its heads split into (kv head, group)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
     groups = cfg.n_heads // cfg.n_kv_heads
     scale = q.shape[-1] ** -0.5
-    qg = q.reshape(b, c, cfg.n_kv_heads, groups, cfg.head_dim)
-    logits = torch.einsum("bskgd,btkd->bkgst", qg.float(), ck.float()) * scale
-    logits = torch.where(mask, logits, NEG_INF)
-    probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, cv.to(q.dtype))
-    return L.mm(out.reshape(b, c, -1), p.wo)
+    seq_sharded = isinstance(ck, DTensor) and any(
+        isinstance(pl, Shard) and pl.dim == 1 for pl in ck.placements)
+    if seq_sharded and isinstance(q, DTensor):
+        q = q.redistribute(q.device_mesh, [
+            Replicate() if isinstance(cp, Shard) and cp.dim == 1 else qp
+            for qp, cp in zip(q.placements, ck.placements)])
+    qg = L.split_dim(q, 2, cfg.n_kv_heads, groups)
+
+    def core(qg, ck, cv, mask):
+        logits = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                              ck.float()) * scale
+        logits = shard(torch.where(mask, logits, NEG_INF),
+                       f"attn_logits:{cfg.n_kv_heads}")
+        probs = torch.softmax(logits, dim=-1).to(qg.dtype)
+        return torch.einsum("bkgst,btkd->bskgd", probs, cv.to(qg.dtype))
+
+    if seq_sharded:
+        out = core(qg, ck, cv, mask)
+    else:
+        out = on_local_shards(
+            "decode_attention", core, (qg, ck, cv, mask),
+            ("bskgd", "btkd", "btkd",
+             "vwxyt" if mask.shape[0] == 1 else "bwxyt"), "bskgd",
+            local="bk")
+    return L.mm(L.merge_last(out, 3), p.wo)
 
 
-def decode_step(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, length
-                ) -> tuple[torch.Tensor, dict]:
+def _write_slot(cache: torch.Tensor, new: torch.Tensor, slot: int) -> None:
+    """``cache[:, slot] = new[:, 0]`` in place.  A DTensor cache is
+    written on its local shards: ``new`` takes the cache's placements
+    (its length-1 seq dim replicated) and the rank whose seq range holds
+    ``slot`` writes it, so a seq-sharded cache is never gathered."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not isinstance(cache, DTensor):
+        cache[:, slot] = new[:, 0].to(cache.dtype)
+        return
+    mesh = cache.device_mesh
+    want = [Replicate() if isinstance(pl, Shard) and pl.dim == 1 else pl
+            for pl in cache.placements]
+    local_new = new.redistribute(mesh, want).to_local()
+    local = cache.to_local()
+    # this rank's chunk of the seq dim: the axes sharding it split it in
+    # mesh order, evenly
+    coord = mesh.get_coordinate()
+    chunk = 0
+    for i, pl in enumerate(cache.placements):
+        if isinstance(pl, Shard) and pl.dim == 1:
+            chunk = chunk * mesh.size(i) + coord[i]
+    start = chunk * local.shape[1]
+    if start <= slot < start + local.shape[1]:
+        local[:, slot - start] = local_new[:, 0].to(local.dtype)
+
+
+def decode_step(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, length,
+                shard=None) -> tuple[torch.Tensor, dict]:
     """One decode step.  ``x (B, 1, d)``, ``length`` = #tokens already
     cached: a Python int, or a per-row ``(B,)`` tensor (the slot-serving
     layout), which delegates to ``decode_chunk`` with a one-token chunk
-    (full caches only).  Returns (out (B, 1, d), cache)."""
+    (full caches only).  Returns (out (B, 1, d), cache).  ``shard(x,
+    name)`` keeps the cache (``kv_cache``) and the logits
+    (``attn_logits:K``) on the cache's partitioned axis."""
+    shard = shard or _id_shard
     if isinstance(length, torch.Tensor) and length.ndim == 1:
-        return decode_chunk(p, cfg, x, cache, length)
+        return decode_chunk(p, cfg, x, cache, length, shard)
     length = int(length)
     b = x.shape[0]
     q, k, v = _project_qkv(p, cfg, x)
@@ -221,8 +296,10 @@ def decode_step(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, length
     size = cache["k"].shape[1]
     slot = (length % size) if cfg.window else length
     slot = min(slot, size - 1)         # dynamic_update_slice clamps
-    cache["k"][:, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][:, slot] = v[:, 0].to(cache["v"].dtype)
+    _write_slot(cache["k"], k, slot)
+    _write_slot(cache["v"], v, slot)
+    cache["k"] = shard(cache["k"], "kv_cache")
+    cache["v"] = shard(cache["v"], "kv_cache")
 
     idx = torch.arange(size, device=x.device)
     if cfg.window:
@@ -230,12 +307,12 @@ def decode_step(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, length
     else:
         valid = idx <= length
     out = _grouped_attention(p, cfg, q, cache["k"], cache["v"],
-                             valid[None, None, None, None, :])
+                             valid[None, None, None, None, :], shard)
     return out, cache
 
 
-def decode_chunk(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, lengths
-                 ) -> tuple[torch.Tensor, dict]:
+def decode_chunk(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, lengths,
+                 shard=None) -> tuple[torch.Tensor, dict]:
     """Multi-token decode / prefill against a full KV cache with per-row
     write positions: ``x (B, C, d)``, ``lengths (B,)`` (or a scalar) =
     #tokens already cached per row.  Token ``t`` of row ``b`` lands at
@@ -243,6 +320,7 @@ def decode_chunk(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, lengths
     up to that position, so right-padded rows are exact without a
     validity mask (garbage written past a row's true length is never
     attended before it is overwritten)."""
+    shard = shard or _id_shard
     if cfg.window:
         raise ValueError("decode_chunk serves full caches only "
                          "(cfg.window > 0 uses a rolling cache)")
@@ -260,11 +338,13 @@ def decode_chunk(p, cfg: AttnConfig, x: torch.Tensor, cache: dict, lengths
     slots = positions.clamp(0, size - 1).long()
     cache["k"][rows, slots] = k.to(cache["k"].dtype)
     cache["v"][rows, slots] = v.to(cache["v"].dtype)
+    cache["k"] = shard(cache["k"], "kv_cache")
+    cache["v"] = shard(cache["v"], "kv_cache")
 
     idx = torch.arange(size, device=x.device)
     mask = idx[None, None, :] <= positions[:, :, None]       # (B, C, size)
     out = _grouped_attention(p, cfg, q, cache["k"], cache["v"],
-                             mask[:, None, None])
+                             mask[:, None, None], shard)
     return out, cache
 
 
@@ -278,8 +358,7 @@ def cross_decode(p, cfg: AttnConfig, x: torch.Tensor,
     """Cross-attention of one new token ``x (B, 1, d)`` against
     precomputed encoder memory ``memory_k/v (B, S_src, K, hd)``
     (``memory_kv``, computed once and reused every step)."""
-    b = x.shape[0]
-    q = L.mm(x, p.wq).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+    q = L.split_last(L.mm(x, p.wq), cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rms_norm(q, p.q_norm)
     groups = cfg.n_heads // cfg.n_kv_heads
@@ -287,16 +366,23 @@ def cross_decode(p, cfg: AttnConfig, x: torch.Tensor,
     vv = _expand_kv(memory_v, groups)
     mask = torch.ones((1, 1, 1, kk.shape[1]), dtype=torch.bool,
                       device=x.device)
-    out = multi_query_attention(q, kk, vv, mask)
-    return L.mm(out.reshape(b, 1, -1), p.wo)
+    # sharded operands on their local (batch, head) shards, a memory
+    # sharded over its sequence traded for heads first
+    out = on_local_shards(
+        "attention", lambda q_, k_, v_: multi_query_attention(
+            q_, k_, v_, mask), (q, kk, vv), ("bshd",) * 3, "bshd",
+        local="hb", move=True)
+    return L.mm(L.merge_last(out), p.wo)
 
 
 def memory_kv(p, cfg: AttnConfig, memory: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """Cross-attention K/V of an encoder output ``memory (B, S, d)``."""
-    b, s = memory.shape[:2]
-    k = L.mm(memory, p.wk).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = L.mm(memory, p.wv).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    memory = L.gather_inner(memory)
+    k = L.split_last(L.mm(memory, p.wk), cfg.n_kv_heads, cfg.head_dim,
+                     replicate="kv_heads")
+    v = L.split_last(L.mm(memory, p.wv), cfg.n_kv_heads, cfg.head_dim,
+                     replicate="kv_heads")
     if cfg.qk_norm:
         k = L.rms_norm(k, p.k_norm)
     return k, v

@@ -34,7 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import Params, _dt, embed, remat_active
+from repro_torch.models.transformer import (Params, _dt, _id_shard, embed,
+                                            remat_active)
 
 __all__ = ["EncDec", "init", "from_trees", "encode", "forward", "loss_fn",
            "init_decode_state", "decode_state_from_memory", "decode_step"]
@@ -115,17 +116,28 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, device=device)[None, :].expand(b, s)
 
 
-def encode(cfg: ArchConfig, model: EncDec, frames: torch.Tensor
-           ) -> torch.Tensor:
-    """``frames (B, S_src, d)`` -> the normed encoder output (B, S_src, d)."""
+def _norm(h: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """A block input: ``h`` normed, and on a mesh gathered over its
+    sequence once before the products that read it (the reference puts
+    no ``interior`` constraint in this model)."""
+    return L.gather_inner(L.rms_norm(h, scale))
+
+
+def encode(cfg: ArchConfig, model: EncDec, frames: torch.Tensor,
+           shard=_id_shard) -> torch.Tensor:
+    """``frames (B, S_src, d)`` -> the normed encoder output (B, S_src, d).
+    ``shard(x, name)`` constrains activations (the identity by
+    default)."""
     h = L.mm(frames.to(_dt(cfg.act_dtype)), model.frame_proj)
+    h = shard(h, "activation")
     positions = _positions(h.shape[0], h.shape[1], h.device)
     acfg = _acfg(cfg, False)
 
     def body(h, bp):
-        h = h + A.attention(bp.attn, acfg, L.rms_norm(h, bp.ln1), positions)
-        return h + L.mlp_apply(bp.ffn, L.rms_norm(h, bp.ln2),
-                               cfg.mlp_variant)
+        a = A.attention(bp.attn, acfg, _norm(h, bp.ln1), positions)
+        h = h + shard(a, "residual")
+        f = L.mlp_apply(bp.ffn, _norm(h, bp.ln2), cfg.mlp_variant)
+        return h + shard(f, "residual")
 
     remat = remat_active(cfg, model)
     for bp in model.enc:
@@ -134,24 +146,27 @@ def encode(cfg: ArchConfig, model: EncDec, frames: torch.Tensor
     return L.rms_norm(h, model.enc_norm)
 
 
-def forward(cfg: ArchConfig, model: EncDec, batch: dict,
+def forward(cfg: ArchConfig, model: EncDec, batch: dict, shard=_id_shard,
             last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``batch["frames"] (B, S_src, d)``, ``batch["tokens"] (B, S)`` ->
     (logits, aux = 0).  ``last_only=True`` computes the final position's
     logits only."""
-    memory = encode(cfg, model, batch["frames"])
+    # the keys and values of every layer's cross-attention: gathered
+    # over the sequence once
+    memory = L.gather_inner(encode(cfg, model, batch["frames"], shard))
     tokens = batch["tokens"]
-    h = embed(cfg, model, tokens)
+    h = shard(embed(cfg, model, tokens), "activation")
     positions = _positions(tokens.shape[0], tokens.shape[1], h.device)
     self_cfg, cross_cfg = _acfg(cfg, True), _acfg(cfg, False)
 
     def body(h, bp, memory):
-        h = h + A.attention(bp.self, self_cfg, L.rms_norm(h, bp.ln1),
-                            positions)
-        h = h + A.attention(bp.cross, cross_cfg, L.rms_norm(h, bp.ln2),
-                            positions, kv_x=memory)
-        return h + L.mlp_apply(bp.ffn, L.rms_norm(h, bp.ln3),
-                               cfg.mlp_variant)
+        a = A.attention(bp.self, self_cfg, _norm(h, bp.ln1), positions)
+        h = h + shard(a, "residual")
+        c = A.attention(bp.cross, cross_cfg, _norm(h, bp.ln2),
+                        positions, kv_x=memory)
+        h = h + shard(c, "residual")
+        f = L.mlp_apply(bp.ffn, _norm(h, bp.ln3), cfg.mlp_variant)
+        return h + shard(f, "residual")
 
     remat = remat_active(cfg, model)
     for bp in model.dec:
@@ -159,13 +174,14 @@ def forward(cfg: ArchConfig, model: EncDec, batch: dict,
             else body(h, bp, memory)
     if last_only:
         h = h[:, -1:, :]
-    h = L.rms_norm(h, model.final_norm)
-    return L.mm(h, model.head), torch.zeros((), dtype=torch.float32,
-                                            device=h.device)
+    h = _norm(h, model.final_norm)
+    return shard(L.mm(h, model.head), "logits"), torch.zeros(
+        (), dtype=torch.float32, device=h.device)
 
 
-def loss_fn(cfg: ArchConfig, model: EncDec, batch: dict) -> torch.Tensor:
-    logits, _ = forward(cfg, model, batch)
+def loss_fn(cfg: ArchConfig, model: EncDec, batch: dict, shard=_id_shard
+            ) -> torch.Tensor:
+    logits, _ = forward(cfg, model, batch, shard)
     logp = torch.log_softmax(logits.float(), dim=-1)
     return -logp.gather(-1, batch["labels"].long()[..., None]).mean()
 
@@ -209,9 +225,11 @@ def decode_state_from_memory(cfg: ArchConfig, model: EncDec,
 
 
 def decode_step(cfg: ArchConfig, model: EncDec, tokens: torch.Tensor,
-                state: dict) -> tuple[torch.Tensor, dict]:
-    """One decode step: ``tokens (B, 1)`` -> (logits (B, 1, V), state)."""
-    h = embed(cfg, model, tokens)
+                state: dict, shard=_id_shard) -> tuple[torch.Tensor, dict]:
+    """One decode step: ``tokens (B, 1)`` -> (logits (B, 1, V), state).
+    As in the reference, only the embedding and the logits are
+    constrained; the self-attention cache is not."""
+    h = shard(embed(cfg, model, tokens), "activation")
     length = state["length"]
     self_cfg, cross_cfg = _acfg(cfg, True), _acfg(cfg, False)
     for i, bp in enumerate(model.dec):
@@ -225,4 +243,4 @@ def decode_step(cfg: ArchConfig, model: EncDec, tokens: torch.Tensor,
     new_state = dict(state)
     new_state["length"] = length + 1
     h = L.rms_norm(h, model.final_norm)
-    return L.mm(h, model.head), new_state
+    return shard(L.mm(h, model.head), "logits"), new_state

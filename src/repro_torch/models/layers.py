@@ -10,24 +10,231 @@ JAX promotes mixed operand types in a matrix product (bf16 @ f32 -> f32);
 ``torch.matmul`` refuses them, so every product of the model zoo goes
 through ``mm``, which promotes the same way.  Elementwise ops already
 promote alike in both frameworks, Python scalars being weak in both.
+
+On DTensors (a mesh, ``launch/sharding.py``) the reshapes that DTensor
+cannot shard as XLA would go through ``split_dim`` / ``merge_last``, and
+a block's input is gathered over its sequence once (``gather_inner``,
+which ``launch/sharding.py``'s ``interior`` hook applies) before the
+products that read it; on plain tensors each is the plain reshape or the
+tensor itself.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["mm", "rms_norm", "rms_norm_init", "dense_init", "embed_init",
+__all__ = ["mm", "gather_inner", "split_dim", "split_last", "merge_last",
+           "replications", "lookup_rows", "placed_like",
+           "rms_norm", "rms_norm_init", "dense_init", "embed_init",
            "trunc_normal", "mlp_init", "mlp_apply", "rope", "gelu"]
 
 
 def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``a @ b`` with JAX's type promotion for mixed operands."""
+    """``a @ b`` with JAX's type promotion for mixed operands.  A
+    DTensor ``a`` sharded on a dim between its first and its last (a
+    block's sequence) raises: its caller gathers it once first
+    (``gather_inner``), since DTensor flattens such a dim only in some
+    versions."""
     if a.dtype != b.dtype:
         dt = torch.promote_types(a.dtype, b.dtype)
         a, b = a.to(dt), b.to(dt)
+    if _inner_sharded(a):
+        raise ValueError(f"mm: the input's placements {a.placements} shard "
+                         f"an inner dim of its shape {tuple(a.shape)}; "
+                         f"gather it first (gather_inner)")
     return a @ b
+
+
+def _inner_sharded(x: torch.Tensor) -> bool:
+    from torch.distributed.tensor import DTensor, Shard
+
+    return isinstance(x, DTensor) and x.ndim > 2 and any(
+        isinstance(pl, Shard) and 0 < pl.dim < x.ndim - 1
+        for pl in x.placements)
+
+
+def gather_inner(x: torch.Tensor) -> torch.Tensor:
+    """A DTensor with a dim between its first and its last sharded (the
+    sequence of a block-boundary activation, sharded over "model"
+    between blocks) all-gathered over those dims: the sequence-parallel
+    gather of a block's input, made once before the products that read
+    it.  A plain tensor, or a DTensor sharded only on its first and last
+    dims, is returned as it is."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if not _inner_sharded(x):
+        return x
+    return x.redistribute(x.device_mesh, [
+        Replicate() if isinstance(pl, Shard) and 0 < pl.dim < x.ndim - 1
+        else pl for pl in x.placements])
+
+
+def placed_like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``y`` redistributed to ``x``'s placements where both are DTensors
+    and differ: a block's branch output meeting its residual stream
+    inside a block (RWKV-6's two adds), as the ``residual`` hook does
+    between blocks, so that a partial sum is reduced and the gradient
+    comes back in the branch's own placement.  Otherwise ``y``."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(y, DTensor) and isinstance(x, DTensor) \
+            and y.placements != x.placements:
+        return y.redistribute(x.device_mesh, x.placements)
+    return y
+
+
+#: The open ``replications()`` records: each gather ``split_dim`` makes
+#: is appended to every one.
+_RECORDS: list[list] = []
+
+
+@contextlib.contextmanager
+def replications():
+    """Record the splits that gathered a mesh axis while open: a list of
+    ``{"split", "axis", "size", "axis_size"}`` dicts, one a distinct
+    split (``launch/dryrun.py`` puts it in its artifact)."""
+    rec: list = []
+    _RECORDS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS.remove(rec)
+
+
+def split_dim(x: torch.Tensor, dim: int, *shape: int,
+              replicate: str | None = None) -> torch.Tensor:
+    """Dim ``dim`` of ``x`` (of size ``prod(shape)``) split into ``shape``
+    (heads out of a projection, kv groups out of heads).
+
+    On a DTensor whose ``dim`` is sharded over a mesh axis that does not
+    divide ``shape[0]``, DTensor cannot express the split's shards.  A
+    split named by ``replicate`` gathers that axis first and records it
+    (``replications``): Megatron's KV-head replication (``"kv_heads"``:
+    fewer kv heads than tensor-parallel ranks, each rank keeps the kv
+    head its query heads read) and RWKV-6's LoRA of its five token-shift
+    mixes (``"rwkv_mix_lora"``, 5 x 32 values a token).  Any other such
+    split (query heads the axis does not divide) raises ``ValueError``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    dim = dim % x.ndim
+    if isinstance(x, DTensor):
+        mesh = x.device_mesh
+        bad = [i for i, pl in enumerate(x.placements)
+               if isinstance(pl, Shard) and pl.dim == dim
+               and shape[0] % mesh.size(i)]
+        if bad:
+            names = mesh.mesh_dim_names or tuple(range(mesh.ndim))
+            if replicate is None:
+                raise ValueError(
+                    f"split_dim: {shape[0]} of {shape} do not divide the "
+                    f"{mesh.size(bad[0])}-wide mesh axis "
+                    f"{names[bad[0]]!r} that shards dim {dim}")
+            for i in bad:
+                entry = {"split": replicate, "axis": str(names[i]),
+                         "size": shape[0], "axis_size": mesh.size(i)}
+                for rec in _RECORDS:
+                    if entry not in rec:
+                        rec.append(entry)
+            x = x.redistribute(mesh, [
+                Replicate() if i in bad else pl
+                for i, pl in enumerate(x.placements)])
+    return x.reshape(*x.shape[:dim], *shape, *x.shape[dim + 1:])
+
+
+def lookup_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` at ``tokens`` (an embedding; the MoE combine's
+    expert outputs by slot).  A sharded DTensor table is looked up as
+    Megatron's vocab-parallel embedding: its d dim gathered (the
+    FSDP gather before use), each rank's rows of its own vocab shard
+    taken on its local tokens and zero elsewhere, then summed over the
+    vocab axes (one rank holds each row, so the sum is exact; its
+    backward hands each rank the whole gradient)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.core.distributed import grad_summed, sum_replicated
+
+    if not (isinstance(table, DTensor)
+            and any(p.is_shard() for p in table.placements)):
+        return table[tokens.long()]
+    mesh = table.device_mesh
+    want = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+            for p in table.placements]
+    if want != list(table.placements):
+        table = table.redistribute(mesh, want)
+    vocab_axes = [i for i, p in enumerate(table.placements)
+                  if isinstance(p, Shard)]
+    if not isinstance(tokens, DTensor):
+        tokens = DTensor.from_local(tokens, mesh,
+                                    [Replicate()] * mesh.ndim,
+                                    run_check=False)
+    tok_want = [Replicate() if i in vocab_axes or not (
+        isinstance(p, Shard) and p.dim == 0) else p
+        for i, p in enumerate(tokens.placements)]
+    if tok_want != list(tokens.placements):
+        tokens = tokens.redistribute(mesh, tok_want)
+    coord = mesh.get_coordinate()
+    chunk = 0
+    for i in vocab_axes:
+        chunk = chunk * mesh.size(i) + coord[i]
+    rows = table.shape[0] // math.prod(mesh.size(i) for i in vocab_axes)
+
+    groups = [mesh.get_group(i) for i in vocab_axes]
+    # the table is replicated over the axes that shard the tokens: its
+    # rows' gradient sums over them
+    token_groups = [mesh.get_group(i) for i, p in enumerate(tokens.placements)
+                    if isinstance(p, Shard)]
+
+    def local_rows(tab, tok):
+        tab = grad_summed(tab, token_groups)
+        ids = tok.long() - chunk * rows
+        mine = (ids >= 0) & (ids < rows)
+        got = tab[ids.clamp(0, rows - 1)]
+        return sum_replicated(torch.where(mine[..., None], got, torch.zeros(
+            (), dtype=got.dtype, device=got.device)), groups)
+
+    from torch.distributed.tensor.experimental import local_map
+
+    out = [Replicate() if i in vocab_axes else p
+           for i, p in enumerate(tokens.placements)]
+    return local_map(local_rows, out_placements=(tuple(out),),
+                     in_placements=(tuple(table.placements),
+                                    tuple(tokens.placements)),
+                     device_mesh=mesh)(table, tokens)
+
+
+def split_last(x: torch.Tensor, *shape: int,
+               replicate: str | None = None) -> torch.Tensor:
+    """``split_dim`` of the last dim."""
+    return split_dim(x, -1, *shape, replicate=replicate)
+
+
+class _MergeLast(torch.autograd.Function):
+    """The last ``n`` dims merged; the gradient split back by
+    ``split_dim``, whose rule a DTensor gradient sharded over the merged
+    dim needs."""
+
+    @staticmethod
+    def forward(ctx, x, n):
+        ctx.split = tuple(x.shape[-n:])
+        return x.reshape(*x.shape[:-n], -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return split_last(grad, *ctx.split), None
+
+
+def merge_last(x: torch.Tensor, n: int = 2) -> torch.Tensor:
+    """``x (..., a, b)`` -> ``(..., a * b)``, or the last ``n`` dims
+    merged (heads into a projection's input)."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(x, DTensor) and x.requires_grad \
+            and torch.is_grad_enabled():
+        return _MergeLast.apply(x, n)
+    return x.reshape(*x.shape[:-n], -1)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from repro_torch.models import layers as L
 
 __all__ = ["MoEConfig", "moe_init", "moe_apply", "route", "capacity_of",
-           "dispatch_slots"]
+           "dispatch_slots", "dispatch"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +92,19 @@ def dispatch_slots(gate_idx: torch.Tensor, cfg: MoEConfig, t: int
     return pos, pos < capacity
 
 
+def dispatch(xt: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
+             n_slots: int) -> torch.Tensor:
+    """Every kept pick's token ``xt (T, d)`` written into its slot of an
+    ``(n_slots, d)`` buffer (slots are unique).  A dropped pick writes a
+    spare last row, which is then cut off, so every shape is static (no
+    boolean-mask index; it traces under ``FakeTensorMode``)."""
+    t, d = xt.shape
+    k = slot.shape[1]
+    dest = torch.where(keep, slot, n_slots).reshape(t * k)
+    src = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
+    return xt.new_zeros((n_slots + 1, d)).index_put((dest,), src)[:n_slots]
+
+
 def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
               ) -> tuple[torch.Tensor, torch.Tensor]:
     """``x (B, S, d)`` -> ``(out (B, S, d), aux_loss scalar)``.
@@ -105,7 +118,7 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
     """
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
+    xt = L.gather_inner(x).reshape(t, d)
     e, k = cfg.n_experts, cfg.top_k
     probs, gate_vals, gate_idx = route(p, cfg, xt)
     tc, capacity = capacity_of(cfg, t)
@@ -113,24 +126,24 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
 
     pos, keep = dispatch_slots(gate_idx, cfg, t)
     chunk = (torch.arange(t, device=x.device) // tc)[:, None]
-    slot = (chunk * e + gate_idx) * capacity + pos           # (T, k)
+    # slots expert-major: (expert, dispatch chunk, position)
+    slot = (gate_idx * g + chunk) * capacity + pos           # (T, k)
 
-    # dispatch: every kept pick's token into its slot (slots are unique)
-    xe = x.new_zeros((g * e * capacity, d))
-    tok = torch.arange(t, device=x.device)[:, None].expand(t, k)
-    xe[slot[keep]] = xt[tok[keep]]
-    xe = xe.reshape(g, e, capacity, d)
+    xe = dispatch(xt, slot, keep, e * g * capacity).reshape(e, g * capacity,
+                                                            d)
     up = _expert_mm(xe, p.w_up)
     if cfg.mlp_variant == "swiglu":
         h = F.silu(_expert_mm(xe, p.w_gate)) * up
     else:
         h = L.gelu(up)
-    ye = _expert_mm(h, p.w_down).reshape(g * e * capacity, d)
+    ye = _expert_mm(h, p.w_down).reshape(e * g * capacity, d)
 
     # combine: each token's kept picks, weighted by their gates in the
     # activation dtype, summed over picks in pick order in fp32
     w = torch.where(keep, gate_vals.to(x.dtype).float(), 0.0)
-    picked = ye[torch.where(keep, slot, 0)].float()          # (T, k, d)
+    # (on a mesh, ye's rows are sharded by expert: a vocab-parallel
+    # lookup)
+    picked = L.lookup_rows(ye, torch.where(keep, slot, 0)).float()  # (T, k, d)
     out = (picked * w[..., None]).sum(dim=1).to(ye.dtype).reshape(b, s, d)
 
     frac_tokens = F.one_hot(gate_idx[:, 0], e).float().mean(dim=0)
@@ -139,10 +152,7 @@ def moe_apply(p, cfg: MoEConfig, x: torch.Tensor
 
 
 def _expert_mm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``(g, E, C, a) x (E, a, c) -> (g, E, C, c)``: one batched product
-    over experts, with JAX's type promotion."""
+    """``(E, n, a) x (E, a, c) -> (E, n, c)``: one batched product over
+    experts, with JAX's type promotion."""
     dt = torch.promote_types(x.dtype, w.dtype)
-    g, e, c, a = x.shape
-    xs = x.to(dt).transpose(0, 1).reshape(e, g * c, a)
-    y = torch.bmm(xs, w.to(dt))
-    return y.reshape(e, g, c, -1).transpose(0, 1)
+    return torch.bmm(x.to(dt), w.to(dt))

@@ -21,6 +21,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.dispatch import on_local_shards
 from repro_torch.kernels.recurrent_scan import linear_scan
 from repro_torch.models import layers as L
 
@@ -150,7 +151,9 @@ def rglru_block_apply(p, cfg: RGLRUConfig, x: torch.Tensor,
                                                           full.shape[2]))
 
     if cfg.impl == "pallas" and s > 1:
-        h, h_last = linear_scan(log_a, x_in, state["h"])
+        h, h_last = on_local_shards(
+            "linear_scan", linear_scan, (log_a, x_in, state["h"]),
+            ("bsc", "bsc", "bc"), ("bsc", "bc"), local="bc")
     else:
         # the incoming carry folds into the first element
         x_in = torch.cat([x_in[:, :1] + torch.exp(log_a[:, :1])

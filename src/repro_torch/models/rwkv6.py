@@ -21,10 +21,12 @@ squared-ReLU FFN with token shift.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.dispatch import on_local_shards
 from repro_torch.kernels.recurrent_scan import wkv_chunked
 from repro_torch.models import layers as L
 
@@ -97,8 +99,8 @@ def _ddlerp(tp, x: torch.Tensor, x_prev_tok: torch.Tensor) -> dict:
     xx = x_prev_tok - x
     xbase = x + xx * tp.mu_x
     lora = torch.tanh(L.mm(xbase, tp.mix_a1))                 # (B, S, 5 r)
-    b, s, _ = lora.shape
-    lora = lora.reshape(b, s, 5, -1)
+    lora = L.split_last(lora, 5, lora.shape[-1] // 5,
+                        replicate="rwkv_mix_lora")
     dt = torch.promote_types(lora.dtype, tp.mix_a2.dtype)
     delta = torch.einsum("bsnr,nrd->bsnd", lora.to(dt),
                          tp.mix_a2.to(dt))                    # (B, S, 5, d)
@@ -108,15 +110,14 @@ def _ddlerp(tp, x: torch.Tensor, x_prev_tok: torch.Tensor) -> dict:
 
 def _rkvwg(tp, mixed: dict, h: int, hd: int):
     """Project the mixed branches -> per-head r, k, v, decay logs, gate."""
-    b, s, _ = mixed["r"].shape
-    r = L.mm(mixed["r"], tp.wr).reshape(b, s, h, hd)
-    k = L.mm(mixed["k"], tp.wk).reshape(b, s, h, hd)
-    v = L.mm(mixed["v"], tp.wv).reshape(b, s, h, hd)
+    r = L.split_last(L.mm(mixed["r"], tp.wr), h, hd)
+    k = L.split_last(L.mm(mixed["k"], tp.wk), h, hd)
+    v = L.split_last(L.mm(mixed["v"], tp.wv), h, hd)
     g = F.silu(L.mm(mixed["g"], tp.wg))
     w_raw = tp.w0 + L.mm(torch.tanh(L.mm(mixed["w"], tp.w_a1)), tp.w_a2)
     # log-decay in (-inf, 0): log w = -exp(w_raw)
     logw = -torch.exp(torch.clamp(w_raw.float(), -8.0, 5.0))
-    return r, k, v, logw.reshape(b, s, h, hd), g
+    return r, k, v, L.split_last(logw, h, hd), g
 
 
 # ---------------------------------------------------------------------------
@@ -197,7 +198,7 @@ def _time_mix_out(tp, cfg: RWKVConfig, o, g, b, s):
     ohf = o.reshape(b, s, cfg.n_heads, cfg.head_dim).float()
     var = ohf.square().mean(dim=-1, keepdim=True)
     oh = (ohf * torch.rsqrt(var + 1e-6)).to(o.dtype)
-    o = oh.reshape(b, s, cfg.d_model) * tp.ln_x
+    o = L.merge_last(oh) * tp.ln_x
     return L.mm(o * g, tp.wo)
 
 
@@ -232,7 +233,9 @@ def rwkv_block_apply(params, cfg: RWKVConfig, x: torch.Tensor,
     tp, cp = params.time, params.channel
 
     # --- time mix ---
-    xn = L.rms_norm(x, params.ln1)
+    # each mix's input gathered over its sequence once (a block's
+    # input, sequence-sharded between blocks on a mesh)
+    xn = L.gather_inner(L.rms_norm(x, params.ln1))
     mixed = _ddlerp(tp, xn, _shift(xn, state["shift_att"]))
     r, k, v, logw, g = _rkvwg(tp, mixed, cfg.n_heads, cfg.head_dim)
     if valid is not None:
@@ -246,23 +249,36 @@ def rwkv_block_apply(params, cfg: RWKVConfig, x: torch.Tensor,
         # bf16 compute only when the model runs bf16 activations (the
         # reference's rule)
         cd = "bf16" if x.dtype == torch.bfloat16 else "fp32"
-        o, wkv = wkv_chunked(r, k, v, logw, u, state["wkv"],
-                             compute_dtype=cd)
+        o, wkv = on_local_shards(
+            "wkv_chunked", functools.partial(wkv_chunked, compute_dtype=cd),
+            (r, k, v, logw, u, state["wkv"]),
+            ("bshk", "bshk", "bshv", "bshk", "hk", "bhkv"),
+            ("bshv", "bhkv"), local="bh")
     elif cfg.impl == "chunked" and s > 1:
-        o, wkv = time_mix_chunked(r, k, v, logw, u, state["wkv"], cfg.chunk)
+        # sharded operands scan on their local (batch, head) shards, a
+        # sequence sharding traded for heads first
+        o, wkv = on_local_shards(
+            "time_mix_chunked", functools.partial(time_mix_chunked,
+                                                  chunk=cfg.chunk),
+            (r, k, v, logw, u, state["wkv"]),
+            ("bshk", "bshk", "bshv", "bshk", "hk", "bhkv"),
+            ("bshv", "bhkv"), local="hb", move=True)
     else:
-        o, wkv = time_mix_ref(r, k, v, logw, u, state["wkv"])
+        o, wkv = on_local_shards(
+            "time_mix", time_mix_ref, (r, k, v, logw, u, state["wkv"]),
+            ("bshk", "bshk", "bshv", "bshk", "hk", "bhkv"),
+            ("bshv", "bhkv"), local="hb", move=True)
     o = o.to(x.dtype)
-    x = x + _time_mix_out(tp, cfg, o, g, b, s).to(x.dtype)
+    x = x + L.placed_like(_time_mix_out(tp, cfg, o, g, b, s).to(x.dtype), x)
 
     # --- channel mix ---
-    xn2 = L.rms_norm(x, params.ln2)
+    xn2 = L.gather_inner(L.rms_norm(x, params.ln2))
     shifted = _shift(xn2, state["shift_ffn"])
     xk = xn2 + (shifted - xn2) * cp.mu_k
     xr = xn2 + (shifted - xn2) * cp.mu_r
     kk = torch.square(torch.relu(L.mm(xk, cp.wk)))
     out = L.mm(kk, cp.wv) * torch.sigmoid(L.mm(xr, cp.wr))
-    x = x + out.to(x.dtype)
+    x = x + L.placed_like(out.to(x.dtype), x)
 
     if valid is None:
         new_state = {"wkv": wkv, "shift_att": xn[:, -1, :],

@@ -211,30 +211,41 @@ def init(cfg: ArchConfig, generator: torch.Generator | int = 0,
 # Blocks: train / prefill, decode step, chunked prefill
 # ---------------------------------------------------------------------------
 
-def _ffn(cfg: ArchConfig, block, h, moe: bool = False):
+def _id_shard(x, name):
+    del name
+    return x
+
+
+def _ffn(cfg: ArchConfig, block, h, moe: bool = False, shard=_id_shard):
     """``h`` plus the block's feed-forward of ``ln2(h)``, and its aux loss
-    (0 but for an MoE ``ffn``, which only attention blocks have)."""
-    hn = L.rms_norm(h, block.ln2)
+    (0 but for an MoE ``ffn``, which only attention blocks have).  The
+    normed input is a block ``interior``, the output a ``residual``."""
+    hn = shard(L.rms_norm(h, block.ln2), "interior")
     if moe and cfg.n_experts:
         f, aux = M.moe_apply(block.ffn, moe_config(cfg), hn)
-        return h + f, aux
-    return h + L.mlp_apply(block.ffn, hn, cfg.mlp_variant), 0.0
+        return h + shard(f, "residual"), aux
+    return h + shard(L.mlp_apply(block.ffn, hn, cfg.mlp_variant),
+                     "residual"), 0.0
 
 
 def block_apply(cfg: ArchConfig, kind: str, block, h: torch.Tensor,
-                positions: torch.Tensor
+                positions: torch.Tensor, shard=_id_shard
                 ) -> tuple[torch.Tensor, torch.Tensor | float]:
-    """Training / prefill block (fresh recurrent state): (h, aux loss)."""
+    """Training / prefill block (fresh recurrent state): (h, aux loss).
+    ``shard(x, name)`` constrains the block's interiors and residuals."""
     if kind == "attn":
-        h = h + A.attention(block.attn, _attn_cfg(cfg),
-                            L.rms_norm(h, block.ln1), positions)
-        return _ffn(cfg, block, h, True)
+        a = A.attention(block.attn, _attn_cfg(cfg),
+                        shard(L.rms_norm(h, block.ln1), "interior"),
+                        positions)
+        return _ffn(cfg, block, h + shard(a, "residual"), True, shard)
     if kind == "rec":
         r, _ = G.rglru_block_apply(block.rec, rglru_config(cfg),
-                                   L.rms_norm(h, block.ln1))
-        return _ffn(cfg, block, h + r)
+                                   shard(L.rms_norm(h, block.ln1),
+                                         "interior"))
+        return _ffn(cfg, block, h + shard(r, "residual"), shard=shard)
     if kind == "rwkv":
-        return R.rwkv_block_apply(block, rwkv_config(cfg), h)[0], 0.0
+        y, _ = R.rwkv_block_apply(block, rwkv_config(cfg), h)
+        return shard(y, "residual"), 0.0
     raise ValueError(kind)
 
 
@@ -253,11 +264,13 @@ def _block_state_init(cfg: ArchConfig, kind: str, batch: int, max_len: int,
     raise ValueError(kind)
 
 
-def _block_step(cfg: ArchConfig, kind: str, block, h, state, length):
+def _block_step(cfg: ArchConfig, kind: str, block, h, state, length,
+                shard=_id_shard):
     """Single-token decode block."""
     if kind == "attn":
         a, cache = A.decode_step(block.attn, _attn_cfg(cfg),
-                                 L.rms_norm(h, block.ln1), state, length)
+                                 L.rms_norm(h, block.ln1), state, length,
+                                 shard)
         return _ffn(cfg, block, h + a, True)[0], cache
     if kind == "rec":
         r, st = G.rglru_block_step(block.rec, rglru_config(cfg),
@@ -268,7 +281,8 @@ def _block_step(cfg: ArchConfig, kind: str, block, h, state, length):
     raise ValueError(kind)
 
 
-def _block_chunk(cfg: ArchConfig, kind: str, block, h, state, start, valid):
+def _block_chunk(cfg: ArchConfig, kind: str, block, h, state, start, valid,
+                 shard=_id_shard):
     """Chunked teacher-forced prefill block: ``h (B, C, d)`` against live
     decode state.  ``start`` = absolute position of the chunk's first
     token; ``valid (B, C)`` masks each row's live positions so recurrent
@@ -277,7 +291,8 @@ def _block_chunk(cfg: ArchConfig, kind: str, block, h, state, start, valid):
     before they become visible)."""
     if kind == "attn":
         a, cache = A.decode_chunk(block.attn, _attn_cfg(cfg),
-                                  L.rms_norm(h, block.ln1), state, start)
+                                  L.rms_norm(h, block.ln1), state, start,
+                                  shard)
         return _ffn(cfg, block, h + a, True)[0], cache
     if kind == "rec":
         r, st = G.rglru_block_apply(block.rec, rglru_config(cfg),
@@ -299,7 +314,7 @@ def embed(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
     ``patch_embeds (B, P, d)`` and ``patch_mask (B, S)`` puts the
     projected patches at the masked positions, in order: the j-th masked
     position of a row takes patch ``min(j, P - 1)``."""
-    h = model.embed[tokens.long()].to(_dt(cfg.act_dtype))
+    h = L.lookup_rows(model.embed, tokens).to(_dt(cfg.act_dtype))
     if cfg.fuse_patches and patch_embeds is not None:
         pe = L.mm(patch_embeds.to(h.dtype), model.patch_proj)
         mask = patch_mask.bool()
@@ -318,15 +333,17 @@ def remat_active(cfg: ArchConfig, model: nn.Module) -> bool:
         p.requires_grad for p in model.parameters())
 
 
-def forward(cfg: ArchConfig, model: LM, batch: dict, last_only: bool = False
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def forward(cfg: ArchConfig, model: LM, batch: dict, shard=_id_shard,
+            last_only: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``batch["tokens"] (B, S)`` (and a fusion config's
     ``patch_embeds``, ``patch_mask``) -> (logits, aux): aux is the sum of
     the MoE layers' load-balancing losses, fp32.  ``last_only=True``
-    computes logits for the final position only (the serving prefill)."""
+    computes logits for the final position only (the serving prefill).
+    ``shard(x, name)`` constrains activations (``launch/sharding.py``);
+    the identity by default."""
     tokens = batch["tokens"]
-    h = embed(cfg, model, tokens, batch.get("patch_embeds"),
-              batch.get("patch_mask"))
+    h = shard(embed(cfg, model, tokens, batch.get("patch_embeds"),
+                    batch.get("patch_mask")), "activation")
     b, s = tokens.shape
     positions = torch.arange(s, device=h.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
@@ -336,19 +353,20 @@ def forward(cfg: ArchConfig, model: LM, batch: dict, last_only: bool = False
     for i, block in enumerate(model.layers):
         if i < n_remat:
             h, aux_l = checkpoint(block_apply, cfg, block.kind, block, h,
-                                  positions, use_reentrant=False)
+                                  positions, shard, use_reentrant=False)
         else:
-            h, aux_l = block_apply(cfg, block.kind, block, h, positions)
+            h, aux_l = block_apply(cfg, block.kind, block, h, positions,
+                                   shard)
         aux = aux + aux_l
     if last_only:
         h = h[:, -1:, :]
-    h = L.rms_norm(h, model.final_norm)
-    return L.mm(h, model.head), aux
+    h = L.gather_inner(L.rms_norm(h, model.final_norm))
+    return shard(L.mm(h, model.head), "logits"), aux
 
 
-def loss_fn(cfg: ArchConfig, model: LM, batch: dict, aux_weight: float = 0.01
-            ) -> torch.Tensor:
-    logits, aux = forward(cfg, model, batch)
+def loss_fn(cfg: ArchConfig, model: LM, batch: dict, shard=_id_shard,
+            aux_weight: float = 0.01) -> torch.Tensor:
+    logits, aux = forward(cfg, model, batch, shard)
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -logp.gather(-1, batch["labels"].long()[..., None])[..., 0]
     mask = batch.get("loss_mask")
@@ -379,31 +397,31 @@ def init_decode_state(cfg: ArchConfig, batch: int, max_len: int,
 
 
 def decode_hidden(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
-                  state: dict) -> tuple[torch.Tensor, dict]:
+                  state: dict, shard=_id_shard) -> tuple[torch.Tensor, dict]:
     """One decode step up to the final norm: ``tokens (B, 1)`` ->
     (normed hidden (B, 1, d), new state).  The head is left to the
     caller, so that serving can swap per-cluster heads over the shared
     trunk."""
-    h = embed(cfg, model, tokens)
+    h = shard(embed(cfg, model, tokens), "activation")
     length = state["length"]
     new_layers = []
     for block, st in zip(model.layers, state["layers"]):
-        h, st = _block_step(cfg, block.kind, block, h, st, length)
+        h, st = _block_step(cfg, block.kind, block, h, st, length, shard)
         new_layers.append(st)
     return (L.rms_norm(h, model.final_norm),
             {"length": length + 1, "layers": new_layers})
 
 
 def decode_step(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
-                state: dict) -> tuple[torch.Tensor, dict]:
+                state: dict, shard=_id_shard) -> tuple[torch.Tensor, dict]:
     """One decode step: ``tokens (B, 1)`` -> (logits (B, 1, V), state)."""
-    h, state = decode_hidden(cfg, model, tokens, state)
-    return L.mm(h, model.head), state
+    h, state = decode_hidden(cfg, model, tokens, state, shard)
+    return shard(L.mm(h, model.head), "logits"), state
 
 
 def prefill_chunk(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
-                  state: dict, start: int, valid: torch.Tensor
-                  ) -> tuple[torch.Tensor, dict]:
+                  state: dict, start: int, valid: torch.Tensor,
+                  shard=_id_shard) -> tuple[torch.Tensor, dict]:
     """Teacher-forced prefill of a C-token chunk: ``tokens (B, C)``
     right-padded, ``start`` = the chunk's absolute base position,
     ``valid (B, C)`` = per-row liveness.  Returns the pre-norm hidden
@@ -411,10 +429,11 @@ def prefill_chunk(cfg: ArchConfig, model: LM, tokens: torch.Tensor,
     applies the final norm and head once) and the advanced state
     (``length`` grows by each row's valid count).  Needs a per-slot
     state."""
-    h = embed(cfg, model, tokens)
+    h = shard(embed(cfg, model, tokens), "activation")
     counts = valid.sum(dim=1, dtype=torch.int32)
     new_layers = []
     for block, st in zip(model.layers, state["layers"]):
-        h, st = _block_chunk(cfg, block.kind, block, h, st, start, valid)
+        h, st = _block_chunk(cfg, block.kind, block, h, st, start, valid,
+                             shard)
         new_layers.append(st)
     return h, {"length": state["length"] + counts, "layers": new_layers}

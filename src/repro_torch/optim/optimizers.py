@@ -48,8 +48,18 @@ def apply_updates(params: Params, updates: Params) -> Params:
 
 
 def global_norm(tree: Params) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(v.float()))
+    """The norm over every leaf.  On DTensor leaves the per-leaf sums are
+    partial over their shards, and the norm comes out replicated."""
+    norm = torch.sqrt(sum(torch.sum(torch.square(v.float()))
                           for v in tree.values()))
+    placements = getattr(norm, "placements", None)
+    if placements is not None and not all(p.is_replicate()
+                                          for p in placements):
+        from torch.distributed.tensor import Replicate
+
+        norm = norm.redistribute(norm.device_mesh,
+                                 [Replicate()] * len(placements))
+    return norm
 
 
 def clip_by_global_norm(tree: Params, max_norm: float) -> Params:

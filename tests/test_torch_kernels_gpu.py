@@ -1226,3 +1226,45 @@ class TestTunerAndSpectralOnCard:
         host_labels = ClusterEngine(ClusterConfig(backend="numpy")).spectral(
             r, 4, rng=3)
         assert same_partition(got, host_labels)
+
+
+@pytest.mark.gpu
+class TestMeshOnCard:
+    """The launch family's mesh path on the card: a one-rank NCCL group,
+    a (1, 1) ("data", "model") mesh."""
+
+    def test_flash_through_local_map_is_bit_equal(self, cuda_device):
+        """q, k, v as DTensors of the prefill's placements reach the
+        kernel as their local (batch, head) shards through ``local_map``:
+        one launch, the plain call's bits."""
+        import os
+        import tempfile
+
+        import torch.distributed as dist
+
+        from repro_torch.kernels.dispatch import on_local_shards
+        from repro_torch.launch import mesh as ML
+        from repro_torch.launch import sharding as SH
+
+        torch.manual_seed(0)
+        q, k, v = (torch.randn((2, 256, 16, 128), device=cuda_device)
+                   .to(torch.bfloat16) for _ in range(3))
+        want = flash_attention(q, k, v, causal=True)
+        with tempfile.TemporaryDirectory() as tmp:
+            dist.init_process_group("nccl", init_method="file://"
+                                    f"{os.path.join(tmp, 'store')}",
+                                    world_size=1, rank=0)
+            try:
+                mesh = ML.make_mesh((1, 1), ("data", "model"))
+                spec = SH.P(("data",), None, "model", None)
+                dq, dk, dv = (SH.attach({"t": t}, {"t": spec}, mesh)["t"]
+                              for t in (q, k, v))
+                before = dispatch.LAUNCHES["flash_attention"]
+                got = on_local_shards(
+                    "flash_attention", lambda a, b, c: flash_attention(
+                        a, b, c, causal=True), (dq, dk, dv),
+                    ("bshd",) * 3, "bshd", local="bh")
+                assert dispatch.LAUNCHES["flash_attention"] == before + 1
+                assert torch.equal(got.to_local(), want)
+            finally:
+                dist.destroy_process_group()

@@ -153,3 +153,129 @@ def test_unknown_cost_model_raises_the_same():
     with pytest.raises(ValueError) as ref:
         ref_rf.kernel_costs("flash_attention", n=1)
     assert str(port.value) == str(ref.value)
+
+
+# ---------------------------------------------------------------------------
+# The compiled-artifact half: the HLO parser, traced steps, analyze and
+# memory_summary
+# ---------------------------------------------------------------------------
+
+# tests/test_infra.py's HLO text, and an async pair of each kind
+HLO = """
+  %all-gather.1 = f32[1024,512]{1,0} all-gather(f32[64,512]{1,0} %p), x
+  %all-reduce.2 = bf16[256]{0} all-reduce(bf16[256]{0} %q), y
+  %ag-start = (f32[8]{0}) all-gather-start(f32[2]{0} %r), z
+  %done = f32[8]{0} all-gather-done(%ag-start)
+  %unrelated = f32[9]{0} add(f32[9]{0} %a, f32[9]{0} %b)
+"""
+HLO_MORE = HLO + """
+  %rs = bf16[16,8]{1,0} reduce-scatter(bf16[256,8]{1,0} %x), dimensions={0}
+  %a2a = s32[4,4]{1,0} all-to-all(s32[4,4]{1,0} %y), dimensions={0}
+  %cp-start = (u8[100]{0}) collective-permute-start(u8[100]{0} %z)
+  %cp-done = u8[100]{0} collective-permute-done(%cp-start)
+"""
+
+
+@pytest.mark.parametrize("text", [HLO, HLO_MORE, ""])
+def test_parse_collectives_equals_reference(text):
+    assert dataclasses.asdict(rf.parse_collectives(text)) == \
+        dataclasses.asdict(ref_rf.parse_collectives(text))
+
+
+def test_parse_collectives_counts_of_test_infra():
+    stats = rf.parse_collectives(HLO)
+    assert stats.counts == {"all-gather": 2, "all-reduce": 1}
+    assert stats.bytes_by_kind["all-gather"] == 1024 * 512 * 4 + 32
+    assert stats.bytes_by_kind["all-reduce"] == 512
+
+
+def _record():
+    return rf.StepRecord(
+        flops=197e12, bytes=819e9 * 2,
+        collectives=[("all-gather", 64 * 512 * 4, 1024 * 512 * 4),
+                     ("all-reduce", 512, 512), ("all-gather", 8, 32)],
+        argument_bytes=100.0, output_bytes=30.0, temp_bytes=50.0,
+        alias_bytes=20.0)
+
+
+def test_collective_stats_count_as_the_parser():
+    """A traced step's collectives give the stats the HLO of the same
+    ops gives the reference's parser."""
+    stats = rf.collective_stats(_record())
+    assert dataclasses.asdict(stats) == dataclasses.asdict(
+        ref_rf.parse_collectives(HLO))
+
+
+def test_analyze_matches_reference_roofline():
+    rec = _record()
+    got = rf.analyze(rec, 256, 197e12 * 256 / 2, hw=rf.HW_TABLE["h100"])
+    stats = rf.collective_stats(rec)
+    want = ref_rf.Roofline(
+        chips=256, hlo_flops_per_device=rec.flops,
+        hlo_bytes_per_device=rec.bytes,
+        collective_bytes_per_device=float(stats.bytes_per_device),
+        collective_counts=stats.counts,
+        collective_bytes_by_kind=stats.bytes_by_kind,
+        model_flops_global=197e12 * 256 / 2,
+        hw=ref_hw(rf.HW_TABLE["h100"]))
+    assert got.to_dict() == want.to_dict()
+    assert got.hw is rf.H100 and rf.analyze(rec, 1, 1.0).hw is rf.H100
+
+
+def test_memory_summary_keys_and_total():
+    out = rf.memory_summary(_record())
+    assert out == {"argument_size_in_bytes": 100.0,
+                   "output_size_in_bytes": 30.0,
+                   "temp_size_in_bytes": 50.0,
+                   "alias_size_in_bytes": 20.0,
+                   "total_hbm_bytes": 100.0 + 30.0 + 50.0 - 20.0}
+
+
+def test_trace_step_counts_softmax_and_conversions():
+    """A dtype conversion is one FLOP an element (XLA's convert), a
+    softmax five (its decomposition), a copy none."""
+    import torch
+
+    x = torch.ones((4, 8), dtype=torch.bfloat16)
+
+    def step(x):
+        return torch.softmax(x.float(), dim=-1).clone()
+
+    _, rec = rf.trace_step(step, x)
+    assert rec.matmul_flops == 0
+    assert rec.pointwise_flops == 4 * 8
+    assert rec.reduction_flops == 5 * 4 * 8
+    assert rec.flops == 6 * 4 * 8
+
+
+def test_trace_step_counts_flops_bytes_and_memory():
+    """A plain step on the CPU: the FLOPs by class (the matmul's, one an
+    element of the pointwise add and mul, one an input element of the
+    sum), every non-view op's operands and results, the arguments, the
+    output, the peak of the temporaries and an in-place write to an
+    argument."""
+    import torch
+
+    a = torch.ones((8, 16))
+    b = torch.ones((16, 4))
+    acc = torch.zeros((8, 4))
+
+    def step(a, b, acc):
+        t = a @ b                   # 2 * 8 * 16 * 4 FLOPs
+        acc.add_(t)                 # in place on an argument
+        return (t * 2.0).sum()
+
+    out, rec = rf.trace_step(step, a, b, acc)
+    assert float(out) == 2.0 * 8 * 4 * 16
+    assert rec.matmul_flops == 2 * 8 * 16 * 4
+    assert rec.pointwise_flops == 2 * 8 * 4
+    assert rec.reduction_flops == 8 * 4
+    assert rec.flops == 2 * 8 * 16 * 4 + 3 * 8 * 4
+    assert rec.argument_bytes == (8 * 16 + 16 * 4 + 8 * 4) * 4
+    assert rec.output_bytes == 4
+    assert rec.alias_bytes == 8 * 4 * 4
+    # a @ b reads 8x16 and 16x4, writes 8x4; add_ reads two 8x4, writes
+    # one; mul reads 8x4, writes 8x4; sum reads 8x4, writes 1
+    assert rec.bytes == 4 * ((128 + 64 + 32) + 3 * 32 + 2 * 32 + 33)
+    assert rec.temp_bytes >= 2 * 8 * 4 * 4
+    assert rec.collectives == []
