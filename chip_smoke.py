@@ -155,12 +155,25 @@ two-level protocol and the sharded paths:
        4096) and RWKV-6 against the ``decode_step`` loop's; (d)
        ``manual_tp.make_manual_train_step`` at 4 layers against the auto
        step's loss (1e-4 x max(1, |loss|)); (e) ``launch.dryrun`` of qwen3
-       x {train_4k, decode_32k} x pod on a fake CUDA mesh in subprocesses
-       started at the top of the phase: status, 256 chips, finite FLOPs
-       and bytes, the bottleneck, the useful-FLOPs ratio in (0, 1.05],
-       and the splits that gathered a mesh axis.  3m's and 3n's logits
-       are also held to the parent commit's boolean-mask MoE dispatch
-       (``moe.dispatch`` patched), bit for bit.
+       x {train_4k, decode_32k} x pod, Llama-4-Scout x train_4k x pod
+       (40 query heads padded to 48 on the 16-wide "model" axis) and
+       Phi-3.5-MoE x train_4k x multipod (512 chips) on a fake CUDA mesh
+       in subprocesses started at the top of the phase: status, chips,
+       finite FLOPs and bytes, the bottleneck, the useful-FLOPs ratio in
+       (0, 1.05], the splits that gathered a mesh axis and those padded
+       (with the padded heads' share of the FLOPs).  3m's and 3n's logits
+       are also held to the two earlier MoE dispatches (``moe.dispatch``
+       patched), a boolean-mask write and an ``index_put`` differentiated
+       by autograd, bit for bit.
+  [3t] the example entry points (``repro_torch.examples``) on the card:
+       quickstart on the raw path, with ``--host-ingest`` and with
+       ``--arrivals 4`` (100% clustering accuracy; each newcomer in its
+       task's cluster), ``mthfl_train --dataset fmnist --rounds 2 --seeds
+       2`` (both methods' means and standard deviations, reported with
+       no gate on which wins), ``lm_federated --steps 10`` (every
+       client's losses falling over its steps) and ``serve_demo`` for
+       granite and RWKV-6 (tokens equal to a ``decode_step`` loop's on
+       the same weights and prompt); the kernel launches of each.
 
 Each path runs with the kernel launch counts set to 0 just before it
 and read just after.  Phase [4] times each kernel beside its plain
@@ -253,6 +266,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import os
 import shutil
@@ -403,7 +417,19 @@ MESH_TRAIN_STEPS = 3
 MESH_SERVE_CELLS = (("qwen3_1_7b", 8, 4096), ("rwkv6_1_6b", 8, 4096))
 MESH_SERVE_TOKENS = 16
 MESH_MANUAL_LAYERS = 4
-DRYRUN_SHAPES, DRYRUN_TIMEOUT_S = ("train_4k", "decode_32k"), 600
+# (arch, shape, mesh): qwen3's pod cells, Llama-4-Scout's 40 query heads
+# padded to 48 on the 16-wide "model" axis, and Phi-3.5-MoE training on
+# the multipod mesh (the MoE dispatch's backward on three axes).
+DRYRUN_CELLS = (("qwen3_1_7b", "train_4k", "pod"),
+                ("qwen3_1_7b", "decode_32k", "pod"),
+                ("llama4_scout", "train_4k", "pod"),
+                ("phi3_5_moe", "train_4k", "multipod"))
+DRYRUN_TIMEOUT_S = 900
+# Phase 3t: the example entry points (repro_torch.examples) at small
+# arguments.
+EXAMPLE_MTHFL_ARGS = ["--dataset", "fmnist", "--rounds", "2", "--seeds", "2"]
+EXAMPLE_LM_FED_ARGS = ["--steps", "10"]
+EXAMPLE_SERVE_ARCHS = ("granite_8b", "rwkv6_1_6b")
 TRAIN_LM_CHECK_ARCHS = ("qwen3_1_7b", "rwkv6_1_6b", "phi3_5_moe")
 TRAIN_LM_CHECK_SHAPE = (2, 64)
 RESUME_LAYERS, RESUME_AT = 4, 5
@@ -2447,6 +2473,16 @@ def main(argv=None) -> int:
         xe[slot[keep]] = xt_[tok_[keep]]
         return xe
 
+    def index_put_dispatch(xt_, slot, keep, n_slots):
+        """``moe.dispatch`` before its backward became a gather: an
+        ``index_put`` with a spare row, differentiated by autograd."""
+        t_, k_ = slot.shape
+        dest = torch.where(keep, slot, n_slots).reshape(t_ * k_)
+        src = xt_[:, None, :].expand(t_, k_, xt_.shape[1]).reshape(
+            t_ * k_, xt_.shape[1])
+        return xt_.new_zeros((n_slots + 1, xt_.shape[1])).index_put(
+            (dest,), src)[:n_slots]
+
     def prefill_cell(path, arch, batch_seq, kernel_kw, plain_kw, expect,
                      cut=None, patches=False, draws=None):
         """``forward(last_only=True)`` through the kernels, then the same
@@ -2566,20 +2602,23 @@ def main(argv=None) -> int:
         summary["paths"][path].update(plain_wall_s=wall_p, gap_kernel=gap_k,
                                       gap_plain_bf16=gap_p)
         if moe_cell:
-            # the parent commit's dispatch (a boolean-mask write) on the
-            # same inputs: the shape-static write must give its bits
-            with mock.patch.object(lm_moe, "dispatch", parent_dispatch):
-                logits_parent = model.forward(params, batch,
-                                              last_only=True)[0]
-            same_parent = torch.equal(logits_parent, logits_k)
-            print(f"  MoE dispatch: the logits "
-                  f"{'equal' if same_parent else 'DIFFER from'} the "
-                  f"parent's boolean-mask dispatch bit for bit")
-            require(same_parent, f"{path}: logits differ from the parent "
-                    f"dispatch's")
-            summary["paths"][path]["parent_dispatch_bit_equal"] = \
-                same_parent
-            del logits_parent
+            # the earlier dispatches (a boolean-mask write; an index_put
+            # differentiated by autograd) on the same inputs: the write
+            # with a gathering backward must give their bits
+            for name_, fn_ in (("boolean-mask", parent_dispatch),
+                               ("index_put", index_put_dispatch)):
+                with mock.patch.object(lm_moe, "dispatch", fn_):
+                    logits_parent = model.forward(params, batch,
+                                                  last_only=True)[0]
+                same_parent = torch.equal(logits_parent, logits_k)
+                print(f"  MoE dispatch: the logits "
+                      f"{'equal' if same_parent else 'DIFFER from'} the "
+                      f"{name_} dispatch's bit for bit")
+                require(same_parent, f"{path}: logits differ from the "
+                        f"{name_} dispatch's")
+                summary["paths"][path][
+                    f"{name_}_dispatch_bit_equal"] = same_parent
+                del logits_parent
             picks = b_ * s_ * cfg.moe_top_k
             dropped = [1.0 - float(r["keep"].float().mean())
                        for r in routes_k]
@@ -4364,10 +4403,11 @@ def main(argv=None) -> int:
     src_dir = str(Path(__file__).resolve().parent / "src")
     dry_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
     dry = {}
-    for shape_ in DRYRUN_SHAPES:
-        dry[shape_] = time.perf_counter(), subprocess.Popen(
+    for cell_ in DRYRUN_CELLS:
+        arch_, shape_, mesh_ = cell_
+        dry[cell_] = time.perf_counter(), subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             "qwen3_1_7b", "--shape", shape_, "--mesh", "pod", "--out-dir",
+             arch_, "--shape", shape_, "--mesh", mesh_, "--out-dir",
              dry_dir, "--device-type", "cuda"], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True,
             env=dict(os.environ, PYTHONPATH=src_dir))
@@ -4601,41 +4641,157 @@ def main(argv=None) -> int:
 
     # (e) the dry runs, started at the top of the phase.
     p3s["e"] = {}
-    for shape_, (t0, proc) in dry.items():
+    for (arch_, shape_, mesh_), (t0, proc) in dry.items():
         out_e, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
         wall_e = time.perf_counter() - t0
-        require(proc.returncode == 0, f"3s(e): the dry run of {shape_} "
+        cell_ = f"{arch_} x {shape_} x {mesh_}"
+        require(proc.returncode == 0, f"3s(e): the dry run of {cell_} "
                 f"failed (rc {proc.returncode}):\n{out_e[-3000:]}")
-        art = json.loads((Path(dry_dir) / f"qwen3_1_7b__{shape_}__pod.json")
+        art = json.loads((Path(dry_dir) / f"{arch_}__{shape_}__{mesh_}.json")
                          .read_text())
         roof = art["roofline"]
-        ok = (art["status"] == "ok" and art["chips"] == 256
+        padded_e = art["sharding"]["padded"]
+        ok = (art["status"] == "ok"
+              and art["chips"] == (512 if mesh_ == "multipod" else 256)
               and all(0 < roof[k] < float("inf")
                       for k in ("hlo_flops_per_device",
                                 "hlo_bytes_per_device"))
               and roof["bottleneck"] in ("compute", "memory", "collective")
               and 0 < roof["useful_flops_ratio"] <= 1.05
-              and art["sharding"]["mesh_device_type"] == "cuda")
-        print(f"  (e) dry run qwen3_1_7b x {shape_} x pod: {art['status']}, "
+              and art["sharding"]["mesh_device_type"] == "cuda"
+              and bool(padded_e) == (arch_ == "llama4_scout"))
+        print(f"  (e) dry run {cell_}: {art['status']}, "
               f"{art['chips']} chips, bottleneck {roof['bottleneck']}, "
               f"useful FLOPs ratio {roof['useful_flops_ratio']:.4f}, "
               f"{roof['hlo_flops_per_device']:.4g} FLOPs and "
               f"{roof['hlo_bytes_per_device']:.4g} bytes (unfused) a "
               f"device (FLOPs by class {art['flops_counted']}), "
               f"collectives {roof['collective_counts']}, axes gathered "
-              f"by splits {art['sharding']['replicated']}; wall "
-              f"{wall_e:.1f} s (full depth {art['lower_s']} s, variants "
-              f"{art['compile_s']} s)")
-        require(ok, f"3s(e): the {shape_} artifact fails its bars")
-        p3s["e"][shape_] = dict(bottleneck=roof["bottleneck"],
-                                useful_flops_ratio=roof[
-                                    "useful_flops_ratio"], wall_s=wall_e,
-                                memory=art["memory"],
-                                flops_counted=art["flops_counted"],
-                                collective_counts=roof["collective_counts"],
-                                replicated=art["sharding"]["replicated"])
+              f"by splits {art['sharding']['replicated']}, splits padded "
+              f"{padded_e}; wall {wall_e:.1f} s (full depth "
+              f"{art['lower_s']} s, variants {art['compile_s']} s)")
+        require(ok, f"3s(e): the {cell_} artifact fails its bars")
+        p3s["e"][cell_] = dict(bottleneck=roof["bottleneck"],
+                               useful_flops_ratio=roof[
+                                   "useful_flops_ratio"], wall_s=wall_e,
+                               memory=art["memory"],
+                               flops_counted=art["flops_counted"],
+                               collective_counts=roof["collective_counts"],
+                               replicated=art["sharding"]["replicated"],
+                               padded=padded_e)
     shutil.rmtree(dry_dir, ignore_errors=True)
     phase_done("phase 3s")
+
+    # -- Phase 3t: the example entry points on the card ---------------------
+    # Each example's main() as a user runs it, at small arguments, with the
+    # launch counts set to 0 just before it and read just after.
+    from repro_torch.examples import lm_federated as ex_lm_fed
+    from repro_torch.examples import mthfl_train as ex_mthfl
+    from repro_torch.examples import quickstart as ex_quick
+    from repro_torch.examples import serve_demo as ex_serve
+
+    print("[3t] the examples: quickstart (raw, --host-ingest, --arrivals "
+          "4), mthfl_train, lm_federated, serve_demo")
+    p3t = summary.setdefault("phase_3t", {})
+
+    def example(name, fn, argv):
+        """``fn(argv)`` with its kernel launches and wall time."""
+        torch.cuda.synchronize()
+        dispatch.reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()) as said:
+            out = fn(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: v for k, v in dispatch.LAUNCHES.items() if v}
+        p3t[name] = dict(wall_s=wall, launches=launches)
+        print(f"  {name} ({' '.join(argv) or 'no flags'}): {wall:.2f} s, "
+              f"kernel launches {launches}")
+        return out, said.getvalue()
+
+    for flags in ([], ["--host-ingest"], ["--arrivals", "4"]):
+        name = "_".join(["quickstart"] + [f.strip("-").replace("-", "_")
+                                          for f in flags[:1]])
+        qs, _ = example(name, ex_quick.main, flags)
+        print(f"    clustering accuracy {qs['accuracy']:.0%}, labels "
+              f"{qs['labels'].tolist()}, R in [{qs['similarity'].min():.4f}"
+              f", {qs['similarity'].max():.4f}]")
+        require(qs["accuracy"] == 1.0, f"3t: {name} clustered at "
+                f"{qs['accuracy']:.0%}")
+        p3t[name]["accuracy"] = qs["accuracy"]
+        if "--arrivals" in flags:
+            # each task's users share one cluster (accuracy 100%): a
+            # newcomer belongs in its task's
+            task_cluster = {t: int(qs["labels"][i]) for i, t in enumerate(
+                u.task_id for u in paper_cifar_two_task(n_per_user=400,
+                                                        seed=0))}
+            want_arr = [task_cluster[t] for t in qs["arrival_tasks"]]
+            got_arr = [int(l) for l in qs["arrival_labels"]]
+            print(f"    newcomers' tasks {qs['arrival_tasks']} -> clusters "
+                  f"{got_arr} (their tasks' clusters {want_arr}), margins "
+                  f"{[round(float(m), 4) for m in qs['arrival_margins']]}")
+            require(got_arr == want_arr, "3t: a newcomer left its task's "
+                    "cluster")
+            p3t[name]["arrival_labels"] = got_arr
+
+    mt, _ = example("mthfl_train", ex_mthfl.main, EXAMPLE_MTHFL_ARGS)
+    print(f"    clustering accuracy {mt['clustering_accuracy']:.0%}; "
+          f"proposed {mt['proposed_mean']:.4f} +- {mt['proposed_std']:.4f}"
+          f", random {mt['random_mean']:.4f} +- {mt['random_std']:.4f} "
+          f"(two seeds: reported, no gate on which wins)")
+    require(mt["clustering_accuracy"] == 1.0 and all(
+        np.isfinite(mt[k]) for k in ("proposed_mean", "proposed_std",
+                                     "random_mean", "random_std")),
+            "3t: mthfl_train's clustering or accuracies")
+    p3t["mthfl_train"].update({k: float(mt[k]) for k in (
+        "clustering_accuracy", "proposed_mean", "proposed_std",
+        "random_mean", "random_std")})
+
+    lf, _ = example("lm_federated", ex_lm_fed.main, EXAMPLE_LM_FED_ARGS)
+    steps_lf = [c for lps in lf["step_losses"][0] for c in lps]
+    print(f"    clustering accuracy {lf['accuracy']:.0%}; per-LPS losses "
+          f"{[round(v, 4) for v in lf['losses'][0]]}; each client's step "
+          f"losses, first -> last: "
+          f"{[(round(c[0], 3), round(c[-1], 3)) for c in steps_lf]}")
+    require(lf["accuracy"] == 1.0 and all(c[-1] < c[0] for c in steps_lf),
+            "3t: lm_federated's clustering, or a client's loss did not "
+            "fall")
+    p3t["lm_federated"].update(accuracy=lf["accuracy"],
+                               losses=lf["losses"], step_losses=steps_lf)
+
+    for arch_t in EXAMPLE_SERVE_ARCHS:
+        argv_t = ["--arch", arch_t]
+        st, _ = example(f"serve_demo_{arch_t}", ex_serve.main, argv_t)
+        # the same weights (seed 0 on the card) and prompt through the
+        # decode_step loop
+        args_t = ex_serve.build_parser().parse_args(argv_t)
+        m_t = get_model(get_arch(arch_t, reduced=True))
+        model_t = m_t.init(0, device=dev)
+        prompt_t = torch.randint(0, m_t.cfg.vocab,
+                                 (args_t.batch, args_t.prompt_len),
+                                 generator=torch.Generator().manual_seed(1),
+                                 dtype=torch.int32).to(dev)
+        state_t = m_t.init_decode_state(args_t.batch,
+                                        args_t.prompt_len + args_t.gen,
+                                        device=dev)
+        want_t = []
+        with torch.no_grad():
+            for i in range(args_t.prompt_len + args_t.gen - 1):
+                tok_t = prompt_t[:, i:i + 1] if i < args_t.prompt_len \
+                    else want_t[-1]
+                logits_t, state_t = m_t.decode_step(model_t, tok_t, state_t)
+                if i >= args_t.prompt_len - 1:
+                    want_t.append(logits_t[:, -1].argmax(-1)[:, None].to(
+                        torch.int32))
+        same_t = torch.equal(st.tokens, torch.cat(want_t, dim=1))
+        print(f"    {args_t.gen} tokens x {args_t.batch}: "
+              f"{'equal' if same_t else 'DIFFER from'} the decode_step "
+              f"loop's; {st.tok_per_s:.1f} tok/s")
+        require(same_t, f"3t: serve_demo {arch_t}'s tokens differ")
+        p3t[f"serve_demo_{arch_t}"].update(equal=same_t,
+                                           tok_per_s=st.tok_per_s)
+        del model_t, state_t
+    phase_done("phase 3t")
 
     # -- Phase 4: kernel times at the main path's shapes ------------------
     print("[4] kernels vs plain versions and times at the main-path "

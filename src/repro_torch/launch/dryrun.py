@@ -36,9 +36,15 @@ collectives are a card mesh's; it needs a machine with a card.
 no all-to-all and issues an all-gather and a chunk instead.
 
 Beside the reference's keys the artifact has ``flops_counted`` (the
-traced FLOPs by class: products, pointwise, reductions) and
+traced FLOPs by class: products, pointwise, reductions),
 ``sharding.replicated`` (the splits that gathered a mesh axis:
-``layers.split_dim``'s kv heads and RWKV mix LoRA).
+``layers.split_dim``'s kv heads and RWKV mix LoRA) and
+``sharding.padded`` (the query-head splits padded to the axis:
+``layers.split_heads``, Llama-4-Scout's 40 heads as 48 on a 16-wide
+"model" axis), each with the padded heads' FLOPs a device and their
+share of the traced FLOPs (``padding_flops``).  ``model_flops`` stays on
+the config's heads, so the useful-FLOPs ratio counts the padded work as
+not useful.
 """
 from __future__ import annotations
 
@@ -192,6 +198,33 @@ def trace(cfg, shape, mesh, opts: SH.ShardingOptions,
     return RL.trace_step(step, model, state, batch)[1]
 
 
+def padding_flops(cfg1, shape, mesh, opts: SH.ShardingOptions,
+                  block_impl: str, entry: dict, flops_padded: float
+                  ) -> float:
+    """The FLOPs a device spends on ``entry``'s padded query heads in one
+    layer group (``cfg1``, whose padded trace counted ``flops_padded``).
+
+    A device's FLOPs are linear in its head slots: ``p`` a slot of the
+    projections (which hold the config's heads, ``size / w`` a rank)
+    and ``c`` a slot of the work on split heads (``padded_size / w``).
+    Two more traces of ``cfg1``, with ``padded_size - w`` and
+    ``padded_size`` heads (both divide ``w``: no padding), give
+    ``u = p + c`` and ``v = flops_padded - F(padded_size - w) =
+    (size / w - padded_size / w + 1) p + c``; the padded slots' work is
+    ``c (padded_size - size) / w``.  A decode step makes the heads whole
+    before its attention, and ``c`` comes out near 0 there."""
+    n, n_pad, w = entry["size"], entry["padded_size"], entry["axis_size"]
+    heads = (n_pad - w, n_pad)
+    if any(h % cfg1.n_kv_heads for h in heads):
+        return float("nan")
+    lo, hi = (float(trace(dataclasses.replace(cfg1, n_heads=h), shape,
+                          mesh, opts, block_impl).flops) for h in heads)
+    u, v = hi - lo, flops_padded - lo
+    a = (n - n_pad + w) / w               # the projections' slots over lo
+    c = (v - a * u) / (1.0 - a)
+    return c * (n_pad - n) / w
+
+
 def _metrics(rec: RL.StepRecord) -> dict:
     stats = RL.collective_stats(rec)
     return {"flops": float(rec.flops), "bytes": float(rec.bytes),
@@ -243,7 +276,8 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
         cfg2 = dataclasses.replace(cfg, scan_layers=False,
                                    n_layers=2 * pat_len)
         extra_groups = cfg.n_groups - 1.0 + len(cfg.rest_kinds) / pat_len
-    with fake_world(chips), L.replications() as replicated:
+    with fake_world(chips), L.replications() as replicated, \
+            L.paddings() as padded:
         mesh = ML.make_mesh(mesh_dims, axes, device_type=device_type)
         with FakeTensorMode():
             # the artifact: the full-depth program
@@ -255,6 +289,12 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
             m1 = _metrics(trace(cfg1, shape, mesh, opts, block_impl))
             m2 = _metrics(trace(cfg2, shape, mesh, opts, block_impl))
             t_variants = time.perf_counter() - t0
+            for entry in padded:
+                entry["flops_per_device"] = padding_flops(
+                    cfg1, shape, mesh, opts, block_impl, entry,
+                    m1["flops"]) * (1.0 + extra_groups)
+                entry["flops_share"] = entry["flops_per_device"] / float(
+                    rec.flops)
     raw = _metrics(rec)
 
     keys = ("flops", "bytes", "coll_bytes")
@@ -282,7 +322,7 @@ def run_one(arch_id: str, shape_name: str, mesh_kind: str,
                             "extrapolated": extrapolated},
         "sharding": {"fsdp": opts.fsdp,
                      "activation_mode": opts.activation_mode,
-                     "replicated": replicated,
+                     "replicated": replicated, "padded": padded,
                      "mesh_device_type": device_type},
         "flops_counted": {"matmul": float(rec.matmul_flops),
                           "pointwise": float(rec.pointwise_flops),

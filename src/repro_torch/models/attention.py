@@ -77,7 +77,7 @@ def attn_init(gen, cfg: AttnConfig, dtype=torch.float32,
 
 def _project_qkv(p, cfg: AttnConfig, x, kv_x=None):
     kv_x = x if kv_x is None else kv_x
-    q = L.split_last(L.mm(x, p.wq), cfg.n_heads, cfg.head_dim)
+    q = L.split_heads(L.mm(x, p.wq), cfg.n_heads, cfg.head_dim)
     k = L.split_last(L.mm(kv_x, p.wk), cfg.n_kv_heads, cfg.head_dim,
                      replicate="kv_heads")
     v = L.split_last(L.mm(kv_x, p.wv), cfg.n_kv_heads, cfg.head_dim,
@@ -161,8 +161,10 @@ def attention(p, cfg: AttnConfig, x: torch.Tensor,
         q = L.rope(q, positions, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
     groups = cfg.n_heads // cfg.n_kv_heads
-    k = _expand_kv(k, groups)
-    v = _expand_kv(v, groups)
+    # (query heads a mesh axis does not divide come padded: keys and
+    # values get zero heads to match)
+    k = L.pad_heads(_expand_kv(k, groups), q.shape[2])
+    v = L.pad_heads(_expand_kv(v, groups), q.shape[2])
     # Sharded q/k/v reach the attention core as their local (batch,
     # head) shards; the kernel takes them as they come, the plain paths
     # trade a sequence sharding for heads first.
@@ -185,7 +187,7 @@ def attention(p, cfg: AttnConfig, x: torch.Tensor,
             "attention", lambda q_, k_, v_: multi_query_attention(
                 q_, k_, v_, mask), (q, k, v), ("bshd",) * 3, "bshd",
             local="hb", move=True)
-    return L.mm(L.merge_last(out), p.wo)
+    return L.mm(L.merge_heads(out, cfg.n_heads), p.wo)
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +223,10 @@ def _grouped_attention(p, cfg: AttnConfig, q, ck, cv, mask, shard):
 
     groups = cfg.n_heads // cfg.n_kv_heads
     scale = q.shape[-1] ** -0.5
+    if q.shape[2] != cfg.n_heads:
+        # padded query heads (``split_heads``) are made whole first: the
+        # cache of such a config is never sharded on its kv heads
+        q = L.unpad_heads(q, cfg.n_heads)
     seq_sharded = isinstance(ck, DTensor) and any(
         isinstance(pl, Shard) and pl.dim == 1 for pl in ck.placements)
     if seq_sharded and isinstance(q, DTensor):
@@ -357,22 +363,17 @@ def cross_decode(p, cfg: AttnConfig, x: torch.Tensor,
                  ) -> torch.Tensor:
     """Cross-attention of one new token ``x (B, 1, d)`` against
     precomputed encoder memory ``memory_k/v (B, S_src, K, hd)``
-    (``memory_kv``, computed once and reused every step)."""
-    q = L.split_last(L.mm(x, p.wq), cfg.n_heads, cfg.head_dim)
+    (``memory_kv``, computed once and reused every step).  The memory is
+    read as a decode step reads its cache (``_grouped_attention``), so a
+    memory sharded over its sequence takes the seq-sharded cache's
+    partial softmax."""
+    q = L.split_heads(L.mm(x, p.wq), cfg.n_heads, cfg.head_dim)
     if cfg.qk_norm:
         q = L.rms_norm(q, p.q_norm)
-    groups = cfg.n_heads // cfg.n_kv_heads
-    kk = _expand_kv(memory_k, groups)
-    vv = _expand_kv(memory_v, groups)
-    mask = torch.ones((1, 1, 1, kk.shape[1]), dtype=torch.bool,
+    mask = torch.ones((1, 1, 1, 1, memory_k.shape[1]), dtype=torch.bool,
                       device=x.device)
-    # sharded operands on their local (batch, head) shards, a memory
-    # sharded over its sequence traded for heads first
-    out = on_local_shards(
-        "attention", lambda q_, k_, v_: multi_query_attention(
-            q_, k_, v_, mask), (q, kk, vv), ("bshd",) * 3, "bshd",
-        local="hb", move=True)
-    return L.mm(L.merge_last(out), p.wo)
+    return _grouped_attention(p, cfg, q, memory_k, memory_v, mask,
+                              _id_shard)
 
 
 def memory_kv(p, cfg: AttnConfig, memory: torch.Tensor

@@ -27,7 +27,9 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["mm", "gather_inner", "split_dim", "split_last", "merge_last",
-           "replications", "lookup_rows", "placed_like",
+           "split_heads", "pad_heads", "unpad_heads", "merge_heads",
+           "replications",
+           "paddings", "lookup_rows", "placed_like",
            "rms_norm", "rms_norm_init", "dense_init", "embed_init",
            "trunc_normal", "mlp_init", "mlp_apply", "rope", "gelu"]
 
@@ -86,22 +88,41 @@ def placed_like(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-#: The open ``replications()`` records: each gather ``split_dim`` makes
-#: is appended to every one.
-_RECORDS: list[list] = []
+#: The open records by kind: ``replications()`` ("replicated": each
+#: gather ``split_dim`` makes) and ``paddings()`` ("padded": each head
+#: split ``split_heads`` pads); an entry is appended to every open list
+#: of its kind.
+_RECORDS: dict[str, list[list]] = {"replicated": [], "padded": []}
 
 
 @contextlib.contextmanager
+def _recording(kind: str):
+    rec: list = []
+    _RECORDS[kind].append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDS[kind].remove(rec)
+
+
+def _record(kind: str, entry: dict) -> None:
+    for rec in _RECORDS[kind]:
+        if entry not in rec:
+            rec.append(entry)
+
+
 def replications():
     """Record the splits that gathered a mesh axis while open: a list of
     ``{"split", "axis", "size", "axis_size"}`` dicts, one a distinct
     split (``launch/dryrun.py`` puts it in its artifact)."""
-    rec: list = []
-    _RECORDS.append(rec)
-    try:
-        yield rec
-    finally:
-        _RECORDS.remove(rec)
+    return _recording("replicated")
+
+
+def paddings():
+    """Record the head splits that were padded while open
+    (``split_heads``): a list of ``{"split", "axis", "size",
+    "padded_size", "axis_size"}`` dicts, one a distinct split."""
+    return _recording("padded")
 
 
 def split_dim(x: torch.Tensor, dim: int, *shape: int,
@@ -133,11 +154,9 @@ def split_dim(x: torch.Tensor, dim: int, *shape: int,
                     f"{mesh.size(bad[0])}-wide mesh axis "
                     f"{names[bad[0]]!r} that shards dim {dim}")
             for i in bad:
-                entry = {"split": replicate, "axis": str(names[i]),
-                         "size": shape[0], "axis_size": mesh.size(i)}
-                for rec in _RECORDS:
-                    if entry not in rec:
-                        rec.append(entry)
+                _record("replicated", {
+                    "split": replicate, "axis": str(names[i]),
+                    "size": shape[0], "axis_size": mesh.size(i)})
             x = x.redistribute(mesh, [
                 Replicate() if i in bad else pl
                 for i, pl in enumerate(x.placements)])
@@ -146,12 +165,13 @@ def split_dim(x: torch.Tensor, dim: int, *shape: int,
 
 def lookup_rows(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Rows of ``table`` at ``tokens`` (an embedding; the MoE combine's
-    expert outputs by slot).  A sharded DTensor table is looked up as
-    Megatron's vocab-parallel embedding: its d dim gathered (the
-    FSDP gather before use), each rank's rows of its own vocab shard
-    taken on its local tokens and zero elsewhere, then summed over the
-    vocab axes (one rank holds each row, so the sum is exact; its
-    backward hands each rank the whole gradient)."""
+    expert outputs by slot, and the dispatch's gradient by slot).  A
+    sharded DTensor table is looked up as Megatron's vocab-parallel
+    embedding: its d dim gathered (the FSDP gather before use), each
+    rank's rows of its own vocab shard taken on its local tokens and
+    zero elsewhere, then summed over the vocab axes (one rank holds each
+    row, so the sum is exact; its backward hands each rank the whole
+    gradient)."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     from repro_torch.core.distributed import grad_summed, sum_replicated
@@ -235,6 +255,115 @@ def merge_last(x: torch.Tensor, n: int = 2) -> torch.Tensor:
             and torch.is_grad_enabled():
         return _MergeLast.apply(x, n)
     return x.reshape(*x.shape[:-n], -1)
+
+
+def _head_axes(x: torch.Tensor, dim: int) -> tuple[list[int], int]:
+    """The mesh axes that shard dim ``dim`` of a DTensor ``x``, and the
+    product of their sizes (``[]`` and 1 for a plain tensor)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return [], 1
+    axes = [i for i, pl in enumerate(x.placements)
+            if isinstance(pl, Shard) and pl.dim == dim]
+    return axes, math.prod(x.device_mesh.size(i) for i in axes)
+
+
+def _local(fn, x: torch.Tensor, placements) -> torch.Tensor:
+    """``fn`` on each rank's local shard of ``x``, whose placements are
+    ``placements`` before and after (a shape change on dims they leave
+    whole)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    placements = tuple(placements)
+    return local_map(fn, out_placements=(placements,),
+                     in_placements=(placements,),
+                     device_mesh=x.device_mesh)(x)
+
+
+def split_heads(x: torch.Tensor, n_heads: int, head_dim: int
+                ) -> torch.Tensor:
+    """A query projection ``x (..., n_heads * head_dim)`` split into
+    ``(..., n_heads, head_dim)`` (``split_last``).
+
+    On a DTensor whose last dim is sharded over mesh axes whose product
+    ``w`` does not divide ``n_heads`` (Llama-4-Scout's 40 heads on a
+    16-wide "model" axis), the heads are padded with zero heads to the
+    next multiple of ``w`` and sharded over those axes, ``n_pad / w``
+    heads a rank, none replicated: the projection is gathered over the
+    axes, split and padded on every rank, and each rank keeps its own
+    heads.  The split is recorded (``paddings``).  Nothing that is saved
+    is padded: the padding is made here, from zeros, in each forward;
+    ``pad_heads`` pads keys and values to match and ``merge_heads``
+    drops the padded heads before the output projection, so a padded
+    head adds nothing to an output or to a gradient."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    dim = x.ndim - 1
+    axes, width = _head_axes(x, dim)
+    if n_heads % width == 0:
+        return split_last(x, n_heads, head_dim)
+    n_pad = -(-n_heads // width) * width
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names or tuple(range(mesh.ndim))
+    _record("padded", {"split": "q_heads",
+                       "axis": ",".join(str(names[i]) for i in axes),
+                       "size": n_heads, "padded_size": n_pad,
+                       "axis_size": width})
+    whole = [Replicate() if i in axes else pl
+             for i, pl in enumerate(x.placements)]
+    x = _local(lambda t: F.pad(t.reshape(*t.shape[:-1], n_heads, head_dim),
+                               (0, 0, 0, n_pad - n_heads)),
+               x.redistribute(mesh, whole), whole)
+    return x.redistribute(mesh, [Shard(dim) if i in axes else pl
+                                 for i, pl in enumerate(whole)])
+
+
+def pad_heads(x: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """``x (B, S, H, hd)`` with zero heads appended up to ``n_pad``
+    (keys and values expanded to the query heads, matched to the
+    padding of ``split_heads``); ``x`` itself when it has ``n_pad``.
+    Only a DTensor is ever padded, and its heads are whole on every
+    rank: a mesh axis that does not divide the query heads does not
+    divide the kv heads either, so ``split_dim`` gathered them."""
+    n = x.shape[2]
+    if n == n_pad:
+        return x
+    return _local(lambda t: F.pad(t, (0, 0, 0, n_pad - n)), x,
+                  x.placements)
+
+
+def unpad_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``x (B, S, H, hd)`` padded by ``split_heads`` (``H > n_heads``)
+    -> its first ``n_heads`` heads, whole on every rank: the heads are
+    gathered over the axes that shard them.  The gradient comes back
+    through the same gather, zero on the padded heads.  ``x`` itself
+    when it has ``n_heads``."""
+    from torch.distributed.tensor import Replicate
+
+    if x.shape[2] == n_heads:
+        return x
+    axes, _ = _head_axes(x, 2)
+    whole = [Replicate() if i in axes else pl
+             for i, pl in enumerate(x.placements)]
+    return _local(lambda t: t[:, :, :n_heads],
+                  x.redistribute(x.device_mesh, whole), whole)
+
+
+def merge_heads(x: torch.Tensor, n_heads: int) -> torch.Tensor:
+    """``x (B, S, H, hd)`` -> ``(B, S, n_heads * hd)`` (``merge_last``),
+    the padded heads of ``split_heads`` dropped first (``unpad_heads``)
+    and the merged dim sharded over the axes that sharded the heads
+    again (a local slice), so that the output projection stays
+    tensor-parallel."""
+    from torch.distributed.tensor import Shard
+
+    if x.shape[2] == n_heads:
+        return merge_last(x)
+    axes, _ = _head_axes(x, 2)
+    x = merge_last(unpad_heads(x, n_heads))
+    return x.redistribute(x.device_mesh, [
+        Shard(2) if i in axes else pl for i, pl in enumerate(x.placements)])
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

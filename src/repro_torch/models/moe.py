@@ -97,12 +97,35 @@ def dispatch(xt: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
     """Every kept pick's token ``xt (T, d)`` written into its slot of an
     ``(n_slots, d)`` buffer (slots are unique).  A dropped pick writes a
     spare last row, which is then cut off, so every shape is static (no
-    boolean-mask index; it traces under ``FakeTensorMode``)."""
-    t, d = xt.shape
-    k = slot.shape[1]
-    dest = torch.where(keep, slot, n_slots).reshape(t * k)
-    src = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
-    return xt.new_zeros((n_slots + 1, d)).index_put((dest,), src)[:n_slots]
+    boolean-mask index; it traces under ``FakeTensorMode``).
+
+    The backward is a gather, as the combine is: each token's gradient
+    is its kept picks' slot rows (``layers.lookup_rows``; zero for a
+    dropped pick) summed over its picks, the values and the order of
+    the write's own backward (an index of the buffer's gradient, then
+    the sum over picks), so the gradients are the same bits.  On a mesh
+    the lookup runs on local shards, where an ``aten.index`` of a buffer
+    sharded on three axes has no sharding rule in some torch versions."""
+    return _Dispatch.apply(xt, slot, keep, n_slots)
+
+
+class _Dispatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xt, slot, keep, n_slots):
+        t, d = xt.shape
+        k = slot.shape[1]
+        ctx.save_for_backward(slot, keep)
+        dest = torch.where(keep, slot, n_slots).reshape(t * k)
+        src = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
+        return xt.new_zeros((n_slots + 1, d)).index_put((dest,),
+                                                        src)[:n_slots]
+
+    @staticmethod
+    def backward(ctx, grad):
+        slot, keep = ctx.saved_tensors
+        rows = L.lookup_rows(grad, torch.where(keep, slot, 0))  # (T, k, d)
+        return (torch.where(keep[..., None], rows, 0.0).sum(dim=1),
+                None, None, None)
 
 
 def moe_apply(p, cfg: MoEConfig, x: torch.Tensor

@@ -80,10 +80,12 @@ def _auto_loss_and_grads(cfg, named: dict, batch: dict, mesh):
 def manual_and_auto(rank: int, world: int, inputs: dict) -> dict:
     """On a (2, 4) mesh of ``world`` gloo ranks: the manual TP+SP loss and
     gradients, the auto (DTensor) path's (and those of the configs under
-    ``inputs["rwkv"]``, ``inputs["kv_replicated"]`` and ``inputs["moe"]``,
-    with the splits that gathered an axis), the data-major placement of
-    a dim over two axes, and the refusals of placements nothing can
-    honour."""
+    ``inputs["rwkv"]``, ``inputs["kv_replicated"]``, ``inputs["moe"]``
+    and ``inputs["uneven_heads"]``, with the splits that gathered an axis
+    and those that were padded), one AdamW step of the uneven-heads
+    config, the MoE config on a (2, 2, 2) ("pod", "data", "model") mesh,
+    the data-major placement of a dim over two axes, and the refusals of
+    placements nothing can honour."""
     from torch.distributed.tensor import DTensor
 
     from repro_torch.kernels.dispatch import on_local_shards
@@ -114,16 +116,26 @@ def manual_and_auto(rank: int, world: int, inputs: dict) -> dict:
     # the dense config, and an RWKV one (its scan on local (batch, head)
     # shards, u's gradient summed over the batch shards)
     # one whose 2 kv heads the 4-wide "model" axis does not divide
-    # (Megatron's KV-head replication, recorded), and an MoE one
-    for key in ("auto", "rwkv", "kv_replicated", "moe"):
+    # (Megatron's KV-head replication, recorded), an MoE one, and one
+    # whose 10 query heads it does not divide (padded to 12, recorded)
+    for key in ("auto", "rwkv", "kv_replicated", "moe", "uneven_heads"):
         case = inputs if key == "auto" else inputs[key]
-        with L.replications() as replicated:
+        with L.replications() as replicated, L.paddings() as padded:
             loss, grads = _auto_loss_and_grads(
                 ArchConfig(**case["cfg"]), case["params"],
                 {k: torch.from_numpy(v) for k, v in case["batch"].items()},
                 mesh)
         out[f"{key}_loss"], out[f"{key}_grads"] = loss, grads
         out[f"{key}_replicated"] = replicated
+        out[f"{key}_padded"] = padded
+    # the MoE config on three axes: the dispatch's backward is a lookup
+    # of the slot buffer's gradient on local shards
+    mesh3 = ML.make_mesh((2, 2, 2), ("pod", "data", "model"),
+                         device_type="cpu")
+    case = inputs["moe"]
+    out["moe_3axis_loss"], out["moe_3axis_grads"] = _auto_loss_and_grads(
+        ArchConfig(**case["cfg"]), case["params"],
+        {k: torch.from_numpy(v) for k, v in case["batch"].items()}, mesh3)
 
     # -- one clipped AdamW step of make_train_step: the clip's norm is
     # replicated, the moments keep their parameters' placements
@@ -155,6 +167,45 @@ def manual_and_auto(rank: int, world: int, inputs: dict) -> dict:
             for m in ("m", "v") for k, p in model.named_parameters()),
         sharded=sum(any(pl.is_shard() for pl in p.placements)
                     for p in model.parameters()))
+
+    # -- one AdamW step of the uneven-heads config: the padding is made in
+    # the forward, so the parameters keep their names and shapes
+    case = inputs["uneven_heads"]
+    ucfg = ArchConfig(**case["cfg"])
+    model = load_lm(ucfg, case["params"]).requires_grad_(True)
+    before = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    SH.attach(model, SH.param_specs(ucfg, model, mesh), mesh)
+    opt = optim.adamw(1e-3)
+    state = opt.init({k: p.detach() for k, p in model.named_parameters()})
+    ubatch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    state, res = ST.make_train_step(ucfg, mesh, opt, clip_norm=1.0)(
+        model, state, SH.attach(ubatch, SH.batch_specs(ubatch, mesh), mesh))
+    out["uneven_step"] = dict(
+        loss=float(res["loss"]), shapes_before=before,
+        shapes_after={k: tuple(v.shape)
+                      for k, v in model.state_dict().items()},
+        moment_shapes={k: tuple(v.shape)
+                       for k, v in state.inner["m"].items()})
+
+    # -- cross-attention decode against a memory sharded over its
+    # sequence on both axes (a long source at batch 1), against the same
+    # call on plain tensors
+    from repro_torch.models import attention as A
+
+    acfg = A.AttnConfig(d_model=32, n_heads=4, n_kv_heads=4, head_dim=8,
+                        causal=False)
+    gen = torch.Generator().manual_seed(11)
+    ap = transformer.Params(A.attn_init(gen, acfg))
+    xq = torch.randn(1, 1, 32, generator=gen)
+    mem = [torch.randn(1, 16, 4, 8, generator=gen) for _ in range(2)]
+    want = A.cross_decode(ap, acfg, xq, *mem)
+    dmem = [SH.attach({"m": t}, {"m": SH.P(None, ("data", "model"))},
+                      mesh)["m"] for t in mem]
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    with implicit_replication():
+        got = A.cross_decode(ap, acfg, xq, *dmem)
+    out["cross_decode_gap"] = float((got.full_tensor() - want).abs().max())
 
     # -- one dim over ("data", "model"): chunk d * 4 + m on rank (d, m)
     t = torch.arange(8 * 3, dtype=torch.float32)

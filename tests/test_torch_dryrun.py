@@ -24,7 +24,14 @@ manual path's 16 tensor-parallel ranks):
 * a manual-TP train artifact on the pod mesh, and the refusal of a
   non-dense config there;
 * without ``--device-type`` the mesh is a CUDA mesh, which on a host
-  without a card fails with the flag to pass.
+  without a card fails with the flag to pass;
+* Llama-4-Scout with its 40 query heads (narrow: head dim 8, the REDUCED
+  widths otherwise) on the pod mesh, whose 16-wide "model" axis does not
+  divide them: an ``ok`` artifact whose ``sharding.padded`` records the
+  heads padded to 48, with the padded heads' FLOPs a device, while the
+  8 kv heads are gathered as before; and an RWKV-6 config with 40 heads
+  (not query heads: nothing pads them), which still fails with the
+  split's ``ValueError``.
 
 Every run but the last passes ``--device-type cpu``.
 """
@@ -61,11 +68,21 @@ SCRIPT = textwrap.dedent("""
 
     def reduced(arch):
         # qwen3 at 3 layers, 16 heads (8 kv) of 16: the manual path
-        # splits the heads over the 16 tensor-parallel ranks
+        # splits the heads over the 16 tensor-parallel ranks;
+        # llama4_scout's 40 query heads (8 kv) and an RWKV-6 of 40 heads
+        # on the same 16-wide axis
         cfg = base.get_arch(arch, reduced=True)
-        return dataclasses.replace(cfg, n_layers=3, n_heads=16,
-                                   n_kv_heads=8, head_dim=16) \\
-            if arch == "qwen3_1_7b" else cfg
+        if arch == "qwen3_1_7b":
+            return dataclasses.replace(cfg, n_layers=3, n_heads=16,
+                                       n_kv_heads=8, head_dim=16)
+        if arch == "llama4_scout":
+            return dataclasses.replace(cfg, n_heads=40, n_kv_heads=8,
+                                       head_dim=8)
+        if arch == "rwkv6_1_6b" and PATCH_RWKV[0]:
+            return dataclasses.replace(cfg, d_model=40 * cfg.rwkv_head_dim)
+        return cfg
+
+    PATCH_RWKV = [False]
 
     torch.set_num_threads(1)   # fake tensors: the work is Python's
     DR.get_arch = reduced
@@ -91,6 +108,17 @@ SCRIPT = textwrap.dedent("""
                        "--mesh", "pod", "--out-dir", tmp, "--tag", "cuda"])
         no_card = json.loads(Path(tmp, "qwen3_1_7b__train_4k__pod__cuda"
                                        ".json").read_text())
+        rc4 = DR.main(["--arch", "llama4_scout", "--shape", "train_4k",
+                       "--mesh", "pod", "--out-dir", tmp] + cpu)
+        padded = json.loads(Path(tmp, "llama4_scout__train_4k__pod.json")
+                            .read_text())
+        PATCH_RWKV[0] = True
+        DR.main(["--arch", "rwkv6_1_6b", "--shape", "train_4k",
+                 "--mesh", "pod", "--out-dir", tmp, "--tag", "40"] + cpu)
+        PATCH_RWKV[0] = False
+        unpadded = json.loads(Path(tmp, "rwkv6_1_6b__train_4k__pod__40"
+                                        ".json").read_text())
+    out["padded"] = (rc4, padded, unpadded)
     out["no_card"] = (rc3, no_card, torch.cuda.is_available())
     out["main_rc"], out["artifact"] = rc, art
     out["manual_rc"], out["manual"], out["refused"] = rc2, manual, refused
@@ -196,6 +224,27 @@ def test_pure_data_parallel_splits_flops_exactly(result):
 def test_argument_bytes_are_the_specs_local_bytes(result):
     assert result["artifact"]["memory"]["argument_size_in_bytes"] == \
         result["argument_bytes_from_specs"]
+
+
+def test_uneven_query_heads_are_padded_and_recorded(result):
+    rc, art, unpadded = result["padded"]
+    assert rc == 0 and art["status"] == "ok"
+    sharding = art["sharding"]
+    assert sharding["replicated"] == [
+        {"split": "kv_heads", "axis": "model", "size": 8, "axis_size": 16}]
+    (entry,) = sharding["padded"]
+    flops = entry.pop("flops_per_device")
+    share = entry.pop("flops_share")
+    assert entry == {"split": "q_heads", "axis": "model", "size": 40,
+                     "padded_size": 48, "axis_size": 16}
+    # the padded heads: 8 of 48 slots of the work on split heads, a
+    # part of the step's traced FLOPs
+    assert 0 < flops and 0 < share < 1
+    assert share == flops / art["roofline"]["hlo_flops_per_device"]
+    assert 0 < art["roofline"]["useful_flops_ratio"] <= 1.05
+    # heads that are not query heads are not padded: the split raises
+    assert unpadded["status"] == "fail"
+    assert unpadded["error"].startswith("ValueError: split_dim: 40 of")
 
 
 def test_manual_block_impl(result):

@@ -157,6 +157,36 @@ def test_paper_partitions_are_bit_identical(layout):
         np.testing.assert_array_equal(u.local_label(), r.local_label())
 
 
+@pytest.mark.parametrize("case", ["quickstart_arrivals",
+                                  "lm_federated_tokens"])
+def test_example_data_copies_are_bit_identical(case):
+    """The copies the examples (``repro_torch.examples``) draw, at the
+    examples' own arguments: quickstart's newcomers (``--arrivals 4``)
+    and lm_federated's token streams (a tuple seed) and their
+    features."""
+    if case == "quickstart_arrivals":
+        users = part.paper_cifar_two_task(n_per_user=400, seed=1,
+                                          users_per_task=(2, 2))
+        ref_users = ref_part.paper_cifar_two_task(n_per_user=400, seed=1,
+                                                  users_per_task=(2, 2))
+        assert [u.task_id for u in users] == [0, 0, 1, 1]
+        for u, r in zip(users, ref_users):
+            np.testing.assert_array_equal(u.x, r.x)
+            np.testing.assert_array_equal(u.y, r.y)
+        return
+    from repro.data import tokens as ref_tokens
+    from repro_torch.data import tokens
+
+    for d, u in ((0, 0), (1, 2)):
+        stream = tokens.sample_tokens(tokens.TokenTaskSpec(vocab=256, seed=d),
+                                      4096, seed=(d, u))
+        np.testing.assert_array_equal(stream, ref_tokens.sample_tokens(
+            ref_tokens.TokenTaskSpec(vocab=256, seed=d), 4096, seed=(d, u)))
+        np.testing.assert_array_equal(
+            tokens.token_features(stream, d=64, window=8, vocab=256),
+            ref_tokens.token_features(stream, d=64, window=8, vocab=256))
+
+
 def test_conv_runs_without_tf32_and_restores_the_flag(monkeypatch):
     """cuDNN would run fp32 convolutions in TF32 by default; the conv
     front end turns that off for its call only."""

@@ -135,6 +135,54 @@ def test_moe_apply_matches_reference(name, kw, shape, monkeypatch):
     assert abs(float(aux) - float(want_aux)) <= AUX_TOL
 
 
+def parent_dispatch(xt, slot, keep, n_slots):
+    """The dispatch as it was written before its backward became a
+    gather: an ``index_put`` into a buffer with a spare row for the
+    dropped picks, differentiated by autograd (an ``aten.index`` of the
+    buffer's gradient, then the expand's sum over picks).  The oracle of
+    ``test_dispatch_is_bit_equal_to_index_put``."""
+    t, d = xt.shape
+    k = slot.shape[1]
+    dest = torch.where(keep, slot, n_slots).reshape(t * k)
+    src = xt[:, None, :].expand(t, k, d).reshape(t * k, d)
+    return xt.new_zeros((n_slots + 1, d)).index_put((dest,), src)[:n_slots]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name,kw,shape", MOE_CASES,
+                         ids=[c[0] for c in MOE_CASES])
+def test_dispatch_is_bit_equal_to_index_put(name, kw, shape, dtype,
+                                            monkeypatch):
+    """``moe.dispatch`` (the write, its backward a gather of the slot
+    rows) against ``parent_dispatch`` on plain tensors, on every case of
+    ``MOE_CASES``: ``moe_apply``'s output and aux, and the gradients of
+    the input and of every parameter, are the same bits.  (The gather
+    exists for torch 2.11's DTensor, which has no sharding rule for the
+    parent's backward on three mesh axes: that shows only on the card
+    machine, ``chip_smoke.py`` phase 3s(e); ``tests/test_torch_manual_tp.
+    py`` holds the gradients on a (2, 2, 2) mesh here.)"""
+    dt = getattr(torch, dtype)
+    cfg = moe.MoEConfig(d_model=32, d_ff=48, n_experts=4, **kw)
+    tree = moe.moe_init(torch.Generator().manual_seed(3), cfg)
+    if name == "tied-router":
+        tree["router"].zero_()
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        shape + (32,)).astype(np.float32)).to(dt)
+    results = []
+    for fn in (parent_dispatch, moe.dispatch):
+        monkeypatch.setattr(moe, "dispatch", fn)
+        p = Params({k: v.to(dt) for k, v in tree.items()})
+        p.requires_grad_(True)
+        xx = x.clone().requires_grad_(True)
+        out, aux = moe.moe_apply(p, cfg, xx)
+        weights = torch.linspace(-1.0, 1.0, out.numel()).reshape(out.shape)
+        grads = torch.autograd.grad((out.float() * weights).sum() + aux,
+                                    [xx] + list(p.parameters()))
+        results.append((out, aux) + grads)
+    for a, b in zip(*results):
+        assert torch.equal(a, b)
+
+
 def test_moe_second_pick_drops_while_first_is_kept(monkeypatch):
     """Drop order: token-major, pick-minor within a chunk.  Three tokens
     route to (0, 1), (2, 0), (3, 0) at capacity 2: the third token's

@@ -9,8 +9,21 @@ reference's weights, the reference's own bar; so are a REDUCED RWKV-6
 config's (auto path), whose time mix scans on local (batch, head)
 shards, those of the test config with 2 kv heads, which the 4-wide
 "model" axis does not divide (Megatron's KV-head replication, which the
-run records), and a REDUCED Phi-3.5-MoE config's (its 4 experts over
-"model", the combine a vocab-parallel lookup of the expert outputs).
+run records), a REDUCED Phi-3.5-MoE config's (its 4 experts over
+"model", the combine a vocab-parallel lookup of the expert outputs), and
+a REDUCED Llama-4-Scout config's with 10 query heads, which the 4-wide
+axis does not divide (2.5 a rank, as 40 on a 16-wide axis): they are
+padded to 12 in the activations (``layers.split_heads``), 3 a rank, and
+the run records it.  One clipped AdamW step of that config keeps every
+parameter's name and shape (the padding is never a parameter) and its
+loss is the reference's.  The same spawn builds a (2, 2, 2) ("pod",
+"data", "model") mesh and holds the MoE config's loss and gradients
+there too: the dispatch's backward is a lookup of the slot buffer's
+gradient on local shards.  On torch 2.11's DTensor (the card
+machine's) the parent's form, an ``aten.index`` of that buffer sharded
+on three axes, had no sharding rule; this host's torch (2.13) has one,
+so the failure shows only on the card machine, where ``chip_smoke.py``
+phase 3s(e) traces Phi-3.5-MoE training on the multipod mesh.
 The same spawn shows a dim over ("data", "model") placed data-major
 (chunk d * 4 + m on rank (d, m)), and these raising: a kernel given
 seq-sharded inputs, a spec naming its axes out of mesh order, query
@@ -121,6 +134,33 @@ def spawn():
     want_m = {k: np.asarray(v, np.float32) for k, v in
               convert.reference_named(mcfg, jax.tree.map(
                   np.asarray, mgrads)).items()}
+    # 10 query heads on the 4-wide "model" axis (the fusion config, with
+    # patches)
+    ucfg = dataclasses.replace(get_arch("llama4_scout", reduced=True),
+                               n_heads=10)
+    ref_ucfg = dataclasses.replace(ref_get_arch("llama4_scout",
+                                                reduced=True), n_heads=10)
+    uparams = init(ref_ucfg, jax.random.PRNGKey(7))
+    utoks = jax.random.randint(jax.random.PRNGKey(8), (4, 16), 0,
+                               ucfg.vocab)
+    pmask = np.zeros((4, 16), bool)
+    pmask[:, 3:7] = True
+    ubatch = {"tokens": utoks, "labels": jnp.roll(utoks, -1, 1),
+              "patch_embeds": jnp.asarray(0.1 * np.random.default_rng(9)
+                                          .standard_normal((4, 4, 256)),
+                                          jnp.float32),
+              "patch_mask": jnp.asarray(pmask)}
+    uloss, ugrads = jax.jit(jax.value_and_grad(
+        lambda p: ref_T.loss_fn(ref_ucfg, p, ubatch)))(uparams)
+    inputs["uneven_heads"] = {
+        "cfg": dataclasses.asdict(ucfg),
+        "params": {k: np.asarray(v, np.float32) for k, v in
+                   convert.reference_named(ucfg, jax.tree.map(
+                       np.asarray, uparams)).items()},
+        "batch": {k: np.asarray(v) for k, v in ubatch.items()}}
+    want_u = {k: np.asarray(v, np.float32) for k, v in
+              convert.reference_named(ucfg, jax.tree.map(
+                  np.asarray, ugrads)).items()}
     # the ranks inherit this process's niceness at their start
     nice = os.getpriority(os.PRIO_PROCESS, 0)
     os.setpriority(os.PRIO_PROCESS, 0, nice + 10)
@@ -135,11 +175,13 @@ def spawn():
     return {"manual": (float(loss), want), "auto": (float(loss), want),
             "rwkv": (float(rloss), want_r),
             "kv_replicated": (float(kloss), want_k),
-            "moe": (float(mloss), want_m)}, outs
+            "moe": (float(mloss), want_m), "moe_3axis": (float(mloss), want_m),
+            "uneven_heads": (float(uloss), want_u)}, outs
 
 
 @pytest.mark.parametrize("path", ["manual", "auto", "rwkv",
-                                  "kv_replicated", "moe"])
+                                  "kv_replicated", "moe", "moe_3axis",
+                                  "uneven_heads"])
 def test_loss_and_gradients_match_reference(spawn, path):
     wants, outs = spawn
     want_loss, want_grads = wants[path]
@@ -160,6 +202,29 @@ def test_kv_head_replication_is_recorded(spawn, path):
     assert got == want
 
 
+@pytest.mark.parametrize("path", ["auto", "uneven_heads"])
+def test_query_head_padding_is_recorded(spawn, path):
+    got = spawn[1][0][f"{path}_padded"]
+    want = [] if path == "auto" else [
+        {"split": "q_heads", "axis": "model", "size": 10,
+         "padded_size": 12, "axis_size": 4}]
+    assert got == want
+
+
+def test_uneven_heads_step_keeps_parameter_names_and_shapes(spawn):
+    """One clipped AdamW step of ``make_train_step`` with 10 query heads
+    on the 4-wide axis: its loss is the reference's, and the state dict
+    (the checkpoint's names and shapes) and AdamW's moments are those of
+    the unpadded config."""
+    wants, outs = spawn
+    got = outs[0]["uneven_step"]
+    assert abs(got["loss"] - wants["uneven_heads"][0]) < TOL
+    assert got["shapes_after"] == got["shapes_before"]
+    assert set(got["shapes_before"]) == set(wants["uneven_heads"][1])
+    assert got["moment_shapes"] == got["shapes_before"]
+    assert got["shapes_before"]["layers.0.attn.wq"] == (256, 10 * 32)
+
+
 def test_train_step_keeps_placements(spawn):
     """One clipped AdamW step of ``make_train_step`` on the (2, 4) mesh:
     its loss is the reference's, the clip's global norm is replicated
@@ -169,6 +234,13 @@ def test_train_step_keeps_placements(spawn):
     assert abs(got["loss"] - wants["auto"][0]) < TOL
     assert got["norm_replicated"] and got["moments_placed"]
     assert got["sharded"] > 0
+
+
+def test_cross_decode_on_a_seq_sharded_memory(spawn):
+    """Cross-attention decode against a memory sharded over its sequence
+    on both axes (the long-source decode at batch 1, more ranks than
+    heads): DTensor's partial softmax gives the plain call's output."""
+    assert spawn[1][0]["cross_decode_gap"] < 1e-6
 
 
 def test_two_axis_dim_is_data_major(spawn):

@@ -118,13 +118,16 @@ def test_port_imports_neither_jax_nor_reference():
                  "configs.paper_mlp", "fed.fedavg", "fed.hierarchy",
                  "fed.client", "fed.trainer", "fed.ifca", "obs", "obs.core",
                  "obs.events", "obs.metrics", "obs.trace", "launch.obs",
-                 "checkpoint", "checkpoint.ckpt", "launch.train"):
+                 "checkpoint", "checkpoint.ckpt", "launch.train",
+                 "examples", "examples.common", "examples.quickstart",
+                 "examples.mthfl_train", "examples.lm_federated",
+                 "examples.serve_demo"):
         assert f"repro_torch.{name}" in names
     code = (
         "import importlib, sys\n"
         f"for name in {names!r}: importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or "
-        "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'repro', 'benchmarks'))\n"
         "print('BAD', bad)\n")
     proc = _run(code)
     assert proc.returncode == 0, proc.stderr
@@ -136,7 +139,8 @@ def test_chip_smoke_imports_neither_jax_nor_reference():
     for line in text.splitlines():
         words = line.split()
         if words[:1] in (["import"], ["from"]):
-            assert words[1].split(".")[0] not in ("jax", "repro"), line
+            assert words[1].split(".")[0] not in ("jax", "repro",
+                                                  "benchmarks"), line
 
 
 def test_default_device_raises_without_card():
